@@ -11,5 +11,3 @@ Slice 1 covers one C3P task end to end: the CCP control plane
 (:mod:`repro_torch.core.coded_matmul`) with its fused coded-matmul CUDA
 kernel (:mod:`repro_torch.kernels.coded_matmul`).
 """
-
-from ._device import resolve  # noqa: F401

@@ -16,16 +16,18 @@
 // keeps fp32 within the reference's 1e-5 tolerance.  It uses no tensor cores
 // yet: wgmma, TMA and TF32/bf16 variants are later work.
 //
-// Design.  One CTA owns one (column tile, row tile of a coded block, coded
-// block) and reads its own idx/w row.  It loops over k tiles:
-//   1. gather and sum the neighbour A tiles in fp32 into shared memory (the
-//      encode; zero-weight slots, the padding of low-degree rows, are
-//      skipped, so a systematic block reads one tile and a parity d tiles),
-//   2. stage the X tile in shared memory,
-//   3. accumulate the product in registers (8x8 outputs per thread),
-// and at the end writes its output tile once.  Ragged rows (bm not a
-// multiple of the row tile), k and n are masked here, so the caller pads
-// nothing.  Neighbour indices outside [0, R) are skipped, never read.
+// Design.  One CTA (256 threads, two per SM) owns one (column tile, row
+// tile of a coded block, coded block).  It first compacts its own idx/w row
+// to the nonzero-weight neighbours (zero weights are the padding of
+// low-degree rows, so a systematic block reads one A tile and a parity d).
+// It then walks k in tiles of BK with two shared-memory buffers: while the
+// threads multiply the current encoded-A and X tiles (8x8 outputs per
+// thread, fp32 FMA, operands read as float4), the next tile's X and first
+// neighbour are already in flight into registers; after the product they
+// are summed with the remaining neighbours in fp32 (the encode) and stored
+// into the other buffer, one barrier per tile.  Ragged rows (bm not a
+// multiple of BM), k and n are masked here, so the caller pads nothing.
+// Neighbour indices outside [0, R) are skipped, never read.
 //
 // Bound with ctypes: a plain C interface, pointers and the stream passed as
 // void*, the launch error returned from cudaGetLastError().
@@ -36,15 +38,11 @@
 
 namespace {
 
-constexpr int BM = 128;                       // rows of a coded block per CTA
-constexpr int BN = 128;                       // output columns per CTA
-constexpr int BK = 16;                        // reduction depth per stage
-constexpr int TM = 8;                         // output rows per thread
-constexpr int TN = 8;                         // output columns per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
-constexpr int A_PER_THREAD = BM * BK / THREADS;  // 8
-constexpr int X_PER_THREAD = BK * BN / THREADS;  // 8
-constexpr int A_PAD = 4;  // breaks the 16-way bank conflict of the transposed store
+constexpr int BM = 128;      // rows of a coded block per CTA
+constexpr int BN = 128;      // output columns per CTA
+constexpr int BK = 8;        // reduction depth per tile
+constexpr int THREADS = 256;
+constexpr int A_LD = BM + 4;  // padded row of the k-major encoded tile: conflict-free stores
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -55,92 +53,133 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
     return __float2bfloat16(v);
 }
 
+// Four consecutive k values of one A row (zero where masked).
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void load_a4(float (&v)[4], const T* __restrict__ a, int src,
+                                        int bm, int k, int row, int col) {
+    const T* p = a + ((size_t)src * bm + row) * k + col;
+    const bool row_ok = row < bm;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = (row_ok && col + i < k) ? to_f32(p[i]) : 0.f;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
 coded_matmul_kernel(const T* __restrict__ a, const T* __restrict__ x,
                     const int32_t* __restrict__ idx, const float* __restrict__ w,
                     T* __restrict__ out, int R, int bm, int k, int n, int d_max) {
-    __shared__ float As[BK][BM + A_PAD];  // encoded A tile, k-major
-    __shared__ float Xs[BK][BN];
+    __shared__ __align__(16) float As[2][BK][A_LD];  // encoded A tile, k-major
+    __shared__ __align__(16) float Xs[2][BK][BN];
+    __shared__ int s_nnz;
+    extern __shared__ int s_nbr[];  // d_max neighbour ids, then d_max weights
+    int* s_src = s_nbr;
+    float* s_w = reinterpret_cast<float*>(s_nbr + d_max);
 
     const int b = blockIdx.z;
     const int row0 = blockIdx.y * BM;  // first row inside coded block b
     const int col0 = blockIdx.x * BN;
     const int tid = threadIdx.x;
-    const int tx = tid % (BN / TN);
-    const int ty = tid / (BN / TN);
-    const int32_t* idx_b = idx + (size_t)b * d_max;
-    const float* w_b = w + (size_t)b * d_max;
 
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < k; k0 += BK) {
-        // 1. Encode.  Element e of the tile is (row e / BK, column e % BK):
-        //    16 neighbouring threads read 16 neighbouring columns of one row.
-        float s[A_PER_THREAD];
-#pragma unroll
-        for (int q = 0; q < A_PER_THREAD; ++q) s[q] = 0.f;
+    if (tid == 0) {
+        int cnt = 0;
         for (int j = 0; j < d_max; ++j) {
-            const float wj = w_b[j];
-            const int src = idx_b[j];
-            if (wj == 0.f || src < 0 || src >= R) continue;  // uniform in the CTA
-            const T* a_src = a + (size_t)src * bm * k;
-#pragma unroll
-            for (int q = 0; q < A_PER_THREAD; ++q) {
-                const int e = tid + q * THREADS;
-                const int row = row0 + e / BK;
-                const int col = k0 + e % BK;
-                if (row < bm && col < k) s[q] += wj * to_f32(a_src[(size_t)row * k + col]);
+            const float wj = w[(size_t)b * d_max + j];
+            const int src = idx[(size_t)b * d_max + j];
+            if (wj != 0.f && src >= 0 && src < R) {
+                s_src[cnt] = src;
+                s_w[cnt] = wj;
+                ++cnt;
             }
         }
+        s_nnz = cnt;
+    }
+    __syncthreads();
+    const int nnz = s_nnz;
+
+    // Loader roles: A row tid/2, k columns (tid%2)*4..+3; X row tid/32,
+    // columns (tid%32)*4..+3.
+    const int a_row = tid >> 1, a_col = (tid & 1) * 4;
+    const int x_row = tid >> 5, x_col = (tid & 31) * 4;
+    // Product role: rows ty*4+i and 64+ty*4+i, columns tx*4+j and 64+tx*4+j.
+    const int ty = tid >> 4, tx = tid & 15;
+
+    float a_first[4], x_next[4];
+    auto load_first = [&](int k0) {  // issue the next tile's first loads
+        if (nnz > 0) load_a4(a_first, a, s_src[0], bm, k, row0 + a_row, k0 + a_col);
 #pragma unroll
-        for (int q = 0; q < A_PER_THREAD; ++q) {
-            const int e = tid + q * THREADS;
-            As[e % BK][e / BK] = s[q];
+        for (int i = 0; i < 4; ++i) {
+            const int kr = k0 + x_row, c = col0 + x_col + i;
+            x_next[i] = (kr < k && c < n) ? to_f32(x[(size_t)kr * n + c]) : 0.f;
         }
-        // 2. Stage X: 128 neighbouring threads read one row of the tile.
+    };
+    auto encode_store = [&](int k0, int buf) {  // finish the encode, fill `buf`
+        float s[4];
 #pragma unroll
-        for (int q = 0; q < X_PER_THREAD; ++q) {
-            const int e = tid + q * THREADS;
-            const int kk = e / BN;
-            const int c = e % BN;
-            const int row = k0 + kk;
-            const int col = col0 + c;
-            Xs[kk][c] = (row < k && col < n) ? to_f32(x[(size_t)row * n + col]) : 0.f;
+        for (int i = 0; i < 4; ++i) s[i] = nnz > 0 ? s_w[0] * a_first[i] : 0.f;
+        int j = 1;
+        for (; j + 1 < nnz; j += 2) {  // two neighbours' loads in flight at once
+            float v0[4], v1[4];
+            load_a4(v0, a, s_src[j], bm, k, row0 + a_row, k0 + a_col);
+            load_a4(v1, a, s_src[j + 1], bm, k, row0 + a_row, k0 + a_col);
+            const float w0 = s_w[j], w1 = s_w[j + 1];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                s[i] += w0 * v0[i];
+                s[i] += w1 * v1[i];
+            }
         }
-        __syncthreads();
-        // 3. Product.  Thread (ty, tx) owns rows ty + 16 i and columns
-        //    tx + 16 j: strided ownership keeps shared reads conflict-free
-        //    and the final stores coalesced.
+        if (j < nnz) {
+            float v0[4];
+            load_a4(v0, a, s_src[j], bm, k, row0 + a_row, k0 + a_col);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) s[i] += s_w[j] * v0[i];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) As[buf][a_col + i][a_row] = s[i];
+        *reinterpret_cast<float4*>(&Xs[buf][x_row][x_col]) =
+            make_float4(x_next[0], x_next[1], x_next[2], x_next[3]);
+    };
+
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+    load_first(0);
+    encode_store(0, 0);
+    __syncthreads();
+    int buf = 0;
+    for (int k0 = 0; k0 < k; k0 += BK) {
+        const bool more = k0 + BK < k;
+        if (more) load_first(k0 + BK);
 #pragma unroll
         for (int kk = 0; kk < BK; ++kk) {
-            float ra[TM];
-            float rx[TN];
+            const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
+            const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
+            const float4 x0 = *reinterpret_cast<const float4*>(&Xs[buf][kk][tx * 4]);
+            const float4 x1 = *reinterpret_cast<const float4*>(&Xs[buf][kk][64 + tx * 4]);
+            const float ra[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+            const float rx[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
 #pragma unroll
-            for (int i = 0; i < TM; ++i) ra[i] = As[kk][ty + i * (BM / TM)];
+            for (int i = 0; i < 8; ++i)
 #pragma unroll
-            for (int j = 0; j < TN; ++j) rx[j] = Xs[kk][tx + j * (BN / TN)];
-#pragma unroll
-            for (int i = 0; i < TM; ++i)
-#pragma unroll
-                for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(ra[i], rx[j], acc[i][j]);
+                for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ra[i], rx[j], acc[i][j]);
         }
+        if (more) encode_store(k0 + BK, buf ^ 1);
         __syncthreads();
+        buf ^= 1;
     }
 
-    // 4. Write once, in the output type.
+    // Write once, in the output type.
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        const int row = row0 + ty + i * (BM / TM);
+    for (int i = 0; i < 8; ++i) {
+        const int row = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
         if (row >= bm) continue;
         T* out_row = out + ((size_t)b * bm + row) * n;
 #pragma unroll
-        for (int j = 0; j < TN; ++j) {
-            const int col = col0 + tx + j * (BN / TN);
+        for (int j = 0; j < 8; ++j) {
+            const int col = col0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
             if (col < n) out_row[col] = from_f32<T>(acc[i][j]);
         }
     }
@@ -157,14 +196,15 @@ int coded_matmul_launch(const void* a, const void* x, const void* idx, const voi
                         void* out, int R, int bm, int k, int n, int C, int d_max,
                         int dtype, void* stream) {
     const dim3 grid((n + BN - 1) / BN, (bm + BM - 1) / BM, C);
+    const size_t smem = 2 * sizeof(int) * (size_t)d_max;  // compacted neighbours
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 1) {
-        coded_matmul_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
+        coded_matmul_kernel<__nv_bfloat16><<<grid, THREADS, smem, s>>>(
             static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(x),
             static_cast<const int32_t*>(idx), static_cast<const float*>(w),
             static_cast<__nv_bfloat16*>(out), R, bm, k, n, d_max);
     } else {
-        coded_matmul_kernel<float><<<grid, THREADS, 0, s>>>(
+        coded_matmul_kernel<float><<<grid, THREADS, smem, s>>>(
             static_cast<const float*>(a), static_cast<const float*>(x),
             static_cast<const int32_t*>(idx), static_cast<const float*>(w),
             static_cast<float*>(out), R, bm, k, n, d_max);

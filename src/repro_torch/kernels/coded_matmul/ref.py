@@ -24,15 +24,10 @@ def coded_matmul_ref(
     mask: torch.Tensor,   # (C, d_max) bool/float — neighbour weights
     bm: int,
 ) -> torch.Tensor:
-    r_blocks = a.shape[0] // bm
-    if a.shape[0] != r_blocks * bm:
+    if a.shape[0] % bm:
         raise ValueError(f"a rows {a.shape[0]} not divisible by bm={bm}")
-    blocks = a.reshape(r_blocks, bm, a.shape[1])
-    gathered = blocks[idx.long()]                       # (C, d_max, bm, k)
-    m = mask.to(a.dtype)[:, :, None, None]
-    enc = (gathered * m).sum(dim=1)                     # (C, bm, k)
-    out = torch.einsum("cbk,kn->cbn", enc.float(), x.float())
-    return out.reshape(-1, x.shape[1]).to(x.dtype)
+    enc = lt_encode_ref(a, idx, mask, bm)               # (C * bm, k), a.dtype
+    return (enc.float() @ x.float()).to(x.dtype)
 
 
 def lt_encode_ref(

@@ -21,10 +21,11 @@ from repro_torch.kernels.coded_matmul import (coded_matmul, coded_matmul_cuda,
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # The reference suite's sweep shapes, a ragged k/n shape, several row tiles
-# with a dense-parity code of degree 16, and a k not a multiple of the tile.
+# with dense parities of degree R/2 (16: every neighbour staged; 32: more
+# neighbours than the float32 kernel stages), and ragged rows.
 SHAPES = [(4, 2, 8, 16, 16), (6, 3, 16, 64, 32), (8, 4, 8, 128, 128),
           (3, 2, 32, 48, 24), (10, 5, 8, 32, 8), (4, 2, 8, 20, 13),
-          (32, 8, 256, 300, 260), (5, 3, 130, 77, 129)]
+          (32, 8, 256, 300, 260), (64, 8, 16, 100, 72), (5, 3, 130, 77, 129)]
 
 
 @pytest.fixture
@@ -40,7 +41,7 @@ def card():
 @pytest.mark.parametrize("R,K,bm,kdim,ndim", SHAPES)
 def test_cuda_kernel_matches_plain_version(card, R, K, bm, kdim, ndim, dtype, operand):
     code = fountain.make_lt_code(R=R, K=K, seed=R * 31 + K,
-                                 parity_degree=16 if R == 32 else None)
+                                 parity_degree=R // 2 if R >= 32 else None)
     rng = np.random.default_rng(R + bm)
     a = torch.as_tensor(rng.standard_normal((R * bm, kdim)), dtype=dtype, device=card)
     x = torch.as_tensor(rng.standard_normal((kdim, ndim)), dtype=dtype, device=card)
