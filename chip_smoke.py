@@ -144,6 +144,14 @@ def kernel_at_main_shape(dev) -> dict:
           plain_ms=f"{plain_ms:.4f}", torch_matmul_ms=f"{lib_ms:.4f}",
           bound_ms=f"{bound_ms:.4f}", bytes=nbytes, ops=f"{ops:.4e}",
           k1_tflops=f"{ops / ms / 1e9:.2f}")
+    # Where K1's time goes: systematic blocks (one neighbour, a plain GEMM)
+    # against parity blocks (d neighbours to encode per tile).
+    degree = (w != 0).sum(dim=1)
+    for kind, sel in (("systematic", degree == 1), ("parity", degree > 1)):
+        idx_s, w_s = idx[sel].contiguous(), w[sel].contiguous()
+        ms_s = time_ms(lambda: coded_matmul_cuda(a, x, idx_s, w_s, bm), 10)
+        phase("k1-split", blocks=kind, C=idx_s.shape[0], ms=f"{ms_s:.4f}",
+              product_tflops=f"{2.0 * idx_s.shape[0] * bm * k * n / ms_s / 1e9:.2f}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")

@@ -165,17 +165,13 @@ def efficiency_measured(tr, idle, beta, t_end) -> torch.Tensor:
 # Horizon heuristics (used by engine.Engine)
 # ---------------------------------------------------------------------------
 
-def _m_cap(cfg: ScenarioConfig, kk: int) -> int:
-    # Static: every helper streams back-to-back, so M = R+K always certifies.
-    return kk
-
-
 def _bucketed_horizon(cfg: ScenarioConfig, share: float, k: int) -> int:
     """~3x the fastest helper's fair share, bucketed to a power of two,
-    capped at _m_cap."""
+    capped at k = R+K: on the static path every helper streams
+    back-to-back, so M = R+K always certifies."""
     m = int(np.ceil(3.0 * k * share)) + 64
     bucket = 1 << int(np.ceil(np.log2(max(m, 64))))
-    return min(bucket, _m_cap(cfg, k))
+    return min(bucket, k)
 
 
 def _horizon(cfg: ScenarioConfig, mu, a, R: int) -> int:
