@@ -4,9 +4,11 @@
 
 Builds every CUDA kernel of the port from ``src/repro_torch/csrc``, holds each
 against its plain PyTorch version on the card, times it at the main path's
-shape beside its bound, drives the main path (one C3P task: the coded
-matmul data plane and the CCP control plane) through the port's entry
-points, checks the results, and prints one line per phase.  The line before
+shape beside its bound, drives the main paths through the port's entry
+points (one C3P task: the coded-matmul data plane and the CCP control plane;
+the rateless path: the LT payload round trip on K2 and K3 and the rateless
+CCP control plane with the decoder in the loop), checks the results, and
+prints one line per phase.  The line before
 the last is a JSON object with every kernel's launches on the main path,
 error and times; the last line is ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; so does a machine without a CUDA card,
@@ -32,6 +34,16 @@ FP32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 # The sweep shapes of tests/test_kernels_coded_matmul.py: (R, K, bm, k, n).
 SWEEP = [(4, 2, 8, 16, 16), (6, 3, 16, 64, 32), (8, 4, 8, 128, 128),
          (3, 2, 32, 48, 24), (10, 5, 8, 32, 8)]
+# test_lt_encode_sweep's shapes (R, K, bm, cols) and a ragged one.
+ENC_SHAPES = [(4, 2, 8, 16), (8, 4, 16, 128), (5, 3, 8, 24), (2, 1, 128, 256), (7, 5, 9, 37)]
+# test_lt_decode_kernel_vs_ref_vs_offline's shapes (R, K, bm, cols, lost
+# sources) and a ragged one.
+DEC_SHAPES = [(12, 10, 4, 24, 3), (20, 24, 8, 16, 6), (8, 8, 16, 40, 2), (24, 30, 5, 77, 6)]
+# The rateless data plane: the two "production-ish" payload shapes of the
+# reference's kernel benchmark (benchmarks/kernel_bench.py:70-71), (R, K, bm,
+# cols, lost sources), float32.
+RATELESS = [(64, 64, 256, 4096, 8), (256, 256, 64, 8192, 32)]
+RATELESS_LIMIT = 1e-5  # max|decoded - sources| / max|sources|: ±1 pivots, fp32 sums
 # The main path's shape (the first "production-ish" shape of the reference's
 # kernel benchmark): A 8192x4096, X 4096x4096, 8 shards, 25% overhead.
 MAIN = dict(rows=8192, k_dim=4096, n_dim=4096, n_shards=8, overhead=0.25, bm=256)
@@ -47,6 +59,22 @@ def tolerance(dtype, ref) -> float:
     import torch
     rel = 1e-5 if dtype == torch.float32 else 2e-2
     return rel * (1.0 + float(ref.float().abs().max()))
+
+
+def nan_equal_err(out, ref) -> tuple:
+    """Largest difference over the elements where both are finite, and the
+    tolerance (1e-5 f32 / 2e-2 bf16, scaled by 1 + max finite |ref|); inf
+    if a NaN, an inf or its sign differs."""
+    import torch
+    o, r = out.float(), ref.float()
+    fin = torch.isfinite(r)
+    same = torch.equal(torch.isnan(o), torch.isnan(r)) and torch.equal(
+        torch.where(fin | torch.isnan(r), 0.0, r), torch.where(fin | torch.isnan(o), 0.0, o))
+    if not (same and torch.equal(torch.isfinite(o), fin)):
+        return float("inf"), 0.0
+    err = float((o - r)[fin].abs().max()) if bool(fin.any()) else 0.0
+    rel = 1e-5 if ref.dtype == torch.float32 else 2e-2
+    return err, rel * (1.0 + (float(r[fin].abs().max()) if bool(fin.any()) else 0.0))
 
 
 def time_ms(fn, iters: int) -> float:
@@ -80,22 +108,30 @@ def check_kernel_against_plain(dev) -> None:
     cases += [("ragged-k20-n13", 4, 2, 8, 20, 13, torch.float32, "mask"),
               ("weights-pm1", 8, 4, 16, 64, 48, torch.float32, "weights"),
               ("weights-pm1-bf16", 8, 4, 16, 64, 48, torch.bfloat16, "weights")]
-    for name, R, K, bm, k, n, dt, operand in cases:
+    for name, R, K, bm, k, n, dt, operand in cases + [
+            ("nonfinite-f32", 6, 4, 8, 24, 12, torch.float32, "nonfinite"),
+            ("nonfinite-bf16", 6, 4, 8, 24, 12, torch.bfloat16, "nonfinite")]:
         code = fountain.make_lt_code(R=R, K=K, seed=R * 31 + K)
         a = torch.randn((R * bm, k), generator=gen, device=dev).to(dt)
         x = torch.randn((k, n), generator=gen, device=dev).to(dt)
         idx = torch.as_tensor(code.idx, device=dev)
         mask = torch.as_tensor(code.mask if operand == "mask" else code.weights,
                                device=dev)
+        if operand == "nonfinite":
+            # An inf in source block 0, which parity rows reach only through
+            # padding slots (index 0, weight 0): 0 * inf makes those rows NaN.
+            a[3, 5] = torch.inf
         out = coded_matmul(a, x, idx, mask, bm=bm)
         ref = coded_matmul_ref(a, x, idx, mask, bm)
         torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        tol = tolerance(dt, ref)
+        err, tol = nan_equal_err(out, ref)
         phase("k1-vs-plain", case=name, shape=f"R{R}K{K}bm{bm}k{k}n{n}",
-              max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}")
+              max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}",
+              nan_rows=int(torch.isnan(ref).any(dim=1).sum()))
         if not (out.shape == ref.shape and err <= tol):
             raise AssertionError(f"K1 disagrees with its plain version on {name}")
+        if operand == "nonfinite" and not bool(torch.isnan(ref).any()):
+            raise AssertionError("the non-finite case made no NaN in the plain version")
         if operand == "weights":
             # The ±1 weights must not collapse to the 0/1 mask: parity rows
             # differ between the two operands.
@@ -168,16 +204,319 @@ def engine_cpu_vs_card(dev) -> None:
     tables = engine.draw_tables(torch.Generator().manual_seed(3), cfg, 4, 400, 256)
     on_card = engine.Tables(*(getattr(tables, f.name).to(dev)
                               for f in dataclasses.fields(tables)))
-    for policy in ("ccp", "best"):
+    policies = ("ccp", "best", "naive", "rateless_ccp")
+    for policy in policies:
         cpu = engine.simulate(tables, cfg, 400, policy)
         gpu = engine.simulate(on_card, cfg, 400, policy)
         torch.testing.assert_close(gpu["T"].cpu(), cpu["T"], rtol=1e-6, atol=0)
         torch.testing.assert_close(gpu["efficiency"].cpu(), cpu["efficiency"],
                                    rtol=1e-6, atol=1e-7, equal_nan=True)
-        if not torch.equal(gpu["r_n"].cpu(), cpu["r_n"]):
-            raise AssertionError(f"{policy}: r_n differs between card and CPU")
-    phase("engine-card-vs-cpu", policies="ccp,best", reps=4, N=20, R=400, M=256,
-          agree="yes")
+        for k in ("r_n", "valid"):
+            if not torch.equal(gpu[k].cpu(), cpu[k]):
+                raise AssertionError(f"{policy}: {k} differs between card and CPU")
+    # The symbol ids the rateless loop hands out, on the card and on the CPU.
+    pol = engine._as_policy("rateless_ccp")
+    c = cfg.ccp_cfg(400)
+    ids = [engine.policy_stream(t.beta, t.d_up, t.d_ack, t.d_down, policy=pol,
+                                cfg_static=(c.Bx, c.Br, c.Back, c.alpha),
+                                aux=pol.prepare(cfg, 400, c, t.mu, t.a, t.rate))[0]["sym_id"]
+           for t in (tables, on_card)]
+    if not torch.equal(ids[1].cpu(), ids[0]):
+        raise AssertionError("rateless_ccp: sym_id differs between card and CPU")
+    phase("engine-card-vs-cpu", policies=",".join(policies), reps=4, N=20, R=400, M=256,
+          sym_id="equal", agree="yes")
+
+
+def check_lt_kernels_against_plain(dev) -> None:
+    """K2 and K3 against their plain versions on the card: the reference
+    suite's shapes in f32 and bf16, a ragged shape, ±1 weights against the
+    0/1 mask, and an inf and a NaN in source block 0 (which padding slots
+    name), compared NaN-equal."""
+    import numpy as np
+    import torch
+    from repro_torch.core import decode, fountain
+    from repro_torch.kernels.coded_matmul.ref import lt_encode_ref
+    from repro_torch.kernels.lt_decode import lt_decode, lt_decode_ref
+    from repro_torch.kernels.lt_encode import lt_encode
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).split(".")[-1]
+        for R, K, bm, cols in ENC_SHAPES:
+            code = fountain.make_lt_code(R=R, K=K, seed=R * 17 + K)
+            a = torch.randn((R * bm, cols), generator=gen, device=dev).to(dt)
+            idx = torch.as_tensor(code.idx, device=dev)
+            for operand in ("mask", "weights", "nonfinite"):
+                m = torch.as_tensor(code.mask if operand == "mask" else code.weights, device=dev)
+                x = a.clone()
+                if operand == "nonfinite":
+                    x[3, 1], x[bm - 1, 0] = torch.inf, torch.nan
+                out, ref = lt_encode(x, idx, m, bm=bm), lt_encode_ref(x, idx, m, bm)
+                torch.cuda.synchronize()
+                err, tol = nan_equal_err(out, ref)
+                phase("k2-check", case=f"{operand}-{tag}", shape=f"R{R}K{K}bm{bm}c{cols}",
+                      max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}")
+                if not (out.shape == ref.shape and err <= tol):
+                    raise AssertionError(f"K2 disagrees with its plain version: {operand} "
+                                         f"{tag} R{R}K{K}bm{bm}c{cols}")
+                if operand == "weights" and (code.weights < 0).any() and torch.equal(
+                        out[R * bm:], lt_encode(x, idx, torch.as_tensor(code.mask, device=dev),
+                                                bm=bm)[R * bm:]):
+                    raise AssertionError("K2 dropped the parity signs")
+        for R, K, bm, cols, n_lost in DEC_SHAPES:
+            code = decode.make_decoder_code(R, K, seed=R + K, d_max=8)
+            x = torch.randn((R * bm, cols), generator=gen, device=dev).to(dt)
+            coded = lt_encode_ref(x, torch.as_tensor(code.idx, device=dev),
+                                  torch.as_tensor(code.weights, device=dev), bm)
+            lost = np.random.default_rng(n_lost).choice(R, size=n_lost, replace=False)
+            for case, keep in (("loss", np.setdiff1d(np.arange(R + K), lost)),
+                               ("nonfinite", np.setdiff1d(np.arange(R + K), lost[lost != 0]))):
+                plan = fountain.peel_decode_plan(code, keep)
+                if plan is None:
+                    raise AssertionError(f"the check plan stalls at R{R}K{K}")
+                crx = coded.reshape(R + K, bm, cols)[torch.as_tensor(keep, device=dev)]
+                crx = crx.reshape(-1, cols).contiguous()
+                if case == "nonfinite":  # rows of source 0, which padding slots name
+                    crx[min(2, bm - 1), 1], crx[0, 0] = torch.inf, torch.nan
+                out, ref = lt_decode(crx, plan, bm=bm), lt_decode_ref(crx, plan, bm=bm)
+                torch.cuda.synchronize()
+                err, tol = nan_equal_err(out, ref)
+                phase("k3-check", case=f"{case}-{tag}",
+                      shape=f"R{R}K{K}bm{bm}c{cols}lost{n_lost}",
+                      rounds=len(fountain.plan_rounds(plan)), max_abs_err=f"{err:.3e}",
+                      tol=f"{tol:.3e}")
+                if not (out.shape == ref.shape and err <= tol):
+                    raise AssertionError(f"K3 disagrees with its plain version: {case} "
+                                         f"{tag} R{R}K{K}bm{bm}c{cols}")
+
+
+def rateless_data_plane(dev) -> dict:
+    """The LT payload round trip at the reference benchmark's two
+    production-ish shapes, through the entry points a user calls: encode
+    the sources with the decoder's pool code (K2, ``lt_encode_code``), drop
+    the sources of kernel_bench's loss draw, peel the received set back
+    (K3, ``lt_decode_code``, one launch per round).  Then each kernel, its
+    plain version and its library yardstick are timed on the same inputs,
+    beside the bound of the same work.  Returns the per-kernel numbers
+    summed over the two shapes, with K2's and K3's launches on the path."""
+    import numpy as np
+    import torch
+    from repro_torch.core import decode, fountain
+    from repro_torch.kernels.coded_matmul.ref import lt_encode_ref
+    from repro_torch.kernels.lt_decode import (lt_decode_code, lt_decode_ref,
+                                               lt_decode_round_cuda, peel_round_ref)
+    from repro_torch.kernels.lt_encode import lt_encode_code, lt_encode_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    runs = []
+    for R, K, bm, cols, n_lost in RATELESS:
+        code = decode.make_decoder_code(R, K)
+        a = torch.randn((R * bm, cols), generator=gen, device=dev)
+        lost = np.random.default_rng(R).choice(R, size=n_lost, replace=False)
+        keep = np.setdiff1d(np.arange(R + K), lost)
+        # The main path, counted.
+        lt_encode_cuda.launches = lt_decode_round_cuda.launches = 0
+        coded = lt_encode_code(a, code)
+        crx = coded.view(R + K, bm, cols)[torch.as_tensor(keep, device=dev)].view(-1, cols)
+        plan = fountain.peel_decode_plan(code, keep)
+        if plan is None:
+            phase("rateless-data-plane", R=R, K=K, peel="stalled", fallback="fountain.decode")
+            dec, method = fountain.decode(crx.view(len(keep), bm, cols), code, keep)
+            dec = dec.reshape(R * bm, cols)
+        else:
+            dec, method = lt_decode_code(crx, code, keep), "peel"
+        torch.cuda.synchronize()
+        launches = dict(lt_encode=lt_encode_cuda.launches,
+                        lt_decode=lt_decode_round_cuda.launches)
+        rel = float((dec - a).abs().max()) / float(a.abs().max())
+        rounds = fountain.plan_rounds(plan) if plan is not None else []
+        phase("rateless-data-plane", R=R, K=K, bm=bm, cols=cols, lost=n_lost, method=method,
+              rounds=len(rounds), peeled=plan.n_peeled if plan is not None else 0,
+              k2_launches=launches["lt_encode"], k3_launches=launches["lt_decode"],
+              rel_err=f"{rel:.3e}", limit=f"{RATELESS_LIMIT:.0e}")
+        if not (dec.shape == a.shape and rel <= RATELESS_LIMIT):
+            raise AssertionError(f"rateless round trip R{R}: rel. error {rel:.3e}")
+        if launches["lt_encode"] != 1 or launches["lt_decode"] != len(rounds):
+            raise AssertionError(f"rateless path launches {launches} for {len(rounds)} rounds")
+        blk = bm * cols * a.element_size()
+
+        # K2 alone against its plain version at this shape (every parity
+        # block, also those the round trip never reads), then its time, the
+        # plain version's and one library product's.
+        idx = torch.as_tensor(code.idx, device=dev)
+        w = torch.as_tensor(code.weights, device=dev)
+        k2_ref = lt_encode_ref(a, idx, w, bm)
+        k2_err = float((lt_encode_cuda(a, idx, w, bm) - k2_ref).abs().max())
+        k2_tol = tolerance(torch.float32, k2_ref)
+        del k2_ref
+        if not k2_err <= k2_tol:
+            raise AssertionError(f"K2 at R{R}: max|err| {k2_err:.3e} > {k2_tol:.3e}")
+        k2_ms = time_ms(lambda: lt_encode_cuda(a, idx, w, bm), 10)
+        k2_plain = time_ms(lambda: lt_encode_ref(a, idx, w, bm), 2)
+        torch.cuda.empty_cache()
+        G = torch.as_tensor(code.dense_generator(), device=dev)  # (C, R)
+        a2 = a.view(R, bm * cols)
+        k2_lib = time_ms(lambda: torch.mm(G, a2), 10)
+        nnz = int((w != 0).sum())
+        k2_bytes = a.numel() * 4 + idx.numel() * 8 + coded.numel() * 4
+        k2_bound = max(k2_bytes / HBM_BYTES_PER_S, 2.0 * nnz * bm * cols / FP32_FLOPS) * 1e3
+        k2 = dict(ms=k2_ms, plain_ms=k2_plain, library_ms=k2_lib, bound_ms=k2_bound,
+                  max_abs_err=k2_err, bound_by="bytes"
+                  if k2_bytes / HBM_BYTES_PER_S >= 2.0 * nnz * bm * cols / FP32_FLOPS
+                  else "operations")
+        phase("k2-rateless-shape", R=R, C=R + K, bm=bm, cols=cols, nnz=nnz,
+              k2_ms=f"{k2_ms:.4f}", bound_ms=f"{k2_bound:.4f}",
+              share_of_bound=f"{k2_bound / k2_ms:.3f}", plain_ms=f"{k2_plain:.4f}",
+              torch_mm_ms=f"{k2_lib:.4f}", bytes=k2_bytes, max_abs_err=f"{k2_err:.3e}",
+              tol=f"{k2_tol:.3e}")
+        del coded, G
+        torch.cuda.empty_cache()
+
+        # K3: the rounds alone against the plain decode of the received rows
+        # (the round trip's output too), then the rounds' time (rerunning
+        # them rewrites the same blocks), the rounds with every entry skipped
+        # (what a round costs besides its work: the marks pass and the
+        # launches), the plain rounds, and the library form of each round
+        # (addmm + mul_).
+        k3 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
+                  bound_by="bytes")
+        if rounds:
+            plain = lt_decode_ref(crx, plan, bm=bm)  # from the received rows alone
+            src = plain.clone()  # its direct fills; the blocks the rounds recover zeroed
+            src.view(R, bm, cols)[torch.as_tensor(plan.order_src, device=dev).long()] = 0
+            coded3 = crx.view(len(keep), bm, cols)
+            tabs = [tuple(torch.as_tensor(np.ascontiguousarray(v), device=dev)
+                          for v in (rnd.coded, rnd.src, rnd.nbr_idx, rnd.nbr_coef,
+                                    1.0 / rnd.pivot))
+                    for rnd in rounds]  # int32 and float32 tables of each round
+
+            def k3_rounds():
+                for cpos, dst, nidx, nw, ip in tabs:
+                    lt_decode_round_cuda(crx, src, cpos, dst, nidx, nw, ip, bm)
+
+            k3_rounds()
+            k3_err = max(float((src - plain).abs().max()), float((dec - plain).abs().max()))
+            k3_tol = tolerance(torch.float32, plain)
+            if not k3_err <= k3_tol:
+                raise AssertionError(f"K3 at R{R}: max|err| {k3_err:.3e} > {k3_tol:.3e}")
+
+            def plain_rounds():
+                s3 = plain.view(R, bm, cols)
+                for rnd in rounds:
+                    s3[torch.as_tensor(rnd.src, device=dev).long()] = peel_round_ref(
+                        s3, coded3, rnd, bm=bm)
+
+            dense = []
+            for rnd, (cpos, dst, nidx, nw, ip) in zip(rounds, tabs):
+                W = torch.zeros((rnd.size, R), device=dev)
+                W.scatter_add_(1, nidx.long(), nw)  # padding adds 0 at column 0
+                dense.append((coded3[cpos.long()].reshape(rnd.size, -1), W, ip[:, None]))
+            s2 = src.view(R, bm * cols)
+
+            def library_rounds():
+                for c_sel, W, ip in dense:
+                    torch.addmm(c_sel, W, s2, alpha=-1).mul_(ip)
+
+            skipped = [(torch.full_like(cpos, -1), *rest) for cpos, *rest in tabs]
+
+            def k3_skipped():
+                for t in skipped:
+                    lt_decode_round_cuda(crx, src, *t, bm)
+
+            k3_ms = time_ms(k3_rounds, 20)
+            k3_fixed = time_ms(k3_skipped, 20) / len(rounds)
+            t0 = time.perf_counter()  # the host's share: enqueueing alone, no sync
+            for _ in range(20):
+                k3_skipped()
+            k3_enqueue = (time.perf_counter() - t0) * 1e3 / 20 / len(rounds)
+            torch.cuda.synchronize()
+            k3_plain = time_ms(plain_rounds, 3)
+            k3_lib = time_ms(library_rounds, 20)
+            n_nbr = sum(int((rnd.nbr_coef != 0).sum()) for rnd in rounds)
+            read = {("c", int(c)) for rnd in rounds for c in rnd.coded}
+            read |= {("s", int(s)) for rnd in rounds
+                     for s in rnd.nbr_idx[rnd.nbr_coef != 0]}
+            # cpos, dst and inv_pivot, and an int32 index and a float32
+            # weight per slot, for each peeled entry.
+            k3_bytes = (len(read) + plan.n_peeled) * blk + (
+                12 + 8 * plan.order_nbr_idx.shape[1]) * plan.n_peeled
+            k3_ops = 2.0 * n_nbr * bm * cols + plan.n_peeled * bm * cols
+            k3_bound = max(k3_bytes / HBM_BYTES_PER_S, k3_ops / FP32_FLOPS) * 1e3
+            k3 = dict(ms=k3_ms, plain_ms=k3_plain, library_ms=k3_lib, bound_ms=k3_bound,
+                      max_abs_err=k3_err, bound_by="bytes"
+                      if k3_bytes / HBM_BYTES_PER_S >= k3_ops / FP32_FLOPS else "operations")
+            phase("k3-rateless-shape", R=R, n_rx=len(keep), bm=bm, cols=cols,
+                  rounds=len(rounds), peeled=plan.n_peeled, nbr_reads=n_nbr,
+                  k3_ms=f"{k3_ms:.4f}", skipped_round_ms=f"{k3_fixed:.4f}",
+                  skipped_round_enqueue_ms=f"{k3_enqueue:.4f}",
+                  bound_ms=f"{k3_bound:.4f}",
+                  share_of_bound=f"{k3_bound / k3_ms:.3f}", plain_ms=f"{k3_plain:.4f}",
+                  addmm_mul_ms=f"{k3_lib:.4f}", bytes=k3_bytes, max_abs_err=f"{k3_err:.3e}",
+                  tol=f"{k3_tol:.3e}")
+            del src, plain, dense, tabs, skipped
+        runs.append(dict(launches=launches, lt_encode=k2, lt_decode=k3))
+        del a, crx, dec
+        torch.cuda.empty_cache()
+    out = {}
+    for name in ("lt_encode", "lt_decode"):
+        tot = {k: sum(r[name][k] for r in runs)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        tot["max_abs_err"] = max(r[name]["max_abs_err"] for r in runs)
+        tot["bound_by"] = runs[0][name]["bound_by"]
+        tot["launches"] = sum(r["launches"][name] for r in runs)
+        out[name] = tot
+    return out
+
+
+def rateless_control_plane(dev) -> None:
+    """Rateless CCP against CCP at FIG3[1] through the quickstart (R=2000,
+    200 reps), every rep certified by real decode success; the pacing equal
+    to CCP's bit for bit on the same tables on the card; naive on the same
+    seed; and rateless CCP on the card against the CPU."""
+    import torch
+    from repro_torch import quickstart
+    from repro_torch.configs.ccp_paper import FIG3
+    from repro_torch.core import engine
+    from repro_torch.core.decode import peeling
+
+    peeling.host_syncs = 0
+    t0 = time.perf_counter()
+    res = quickstart.rateless_vs_ccp(device=dev, R=2000, reps=200)
+    torch.cuda.synchronize()
+    phase("rateless-control-plane", cfg="FIG3[1]", R=2000, reps=200,
+          T_rateless=f"{res['T_rateless']:.6f}", T_ccp=f"{res['T_ccp']:.6f}",
+          certified=res["certified"], overhead_mean=f"{res['overhead_mean']:.3f}",
+          overhead_max=f"{res['overhead_max']:.0f}", M=res["M"],
+          wall_s=f"{time.perf_counter() - t0:.3f}", host_syncs=peeling.host_syncs)
+    if not (res["certified"] and res["valid"]):
+        raise AssertionError("uncertified rateless reps (dec_done / dec_count == R)")
+    if not res["overhead_mean"] >= 0:
+        raise AssertionError("negative measured LT overhead")
+
+    cfg, R = FIG3[1], 2000
+    t0 = time.perf_counter()
+    naive = engine.Engine(device=dev).run(cfg, "naive", 200, R, seed=0)
+    phase("naive-control-plane", cfg="FIG3[1]", R=R, reps=200,
+          T_naive=f"{float(naive.T.mean()):.6f}", all_valid=bool(naive.valid.all()),
+          M=naive.M, wall_s=f"{time.perf_counter() - t0:.3f}")
+    if not bool(naive.valid.all()):
+        raise AssertionError("uncertified naive reps")
+
+    # Rateless pacing is Algorithm 1 bit for bit: its traces equal CCP's.
+    tables = engine.draw_tables(torch.Generator(device=dev).manual_seed(0), cfg, 16, R, 256)
+    c = cfg.ccp_cfg(R)
+    outs = {}
+    for name in ("ccp", "rateless_ccp"):
+        pol = engine._as_policy(name)
+        aux = pol.prepare(cfg, R, c, tables.mu, tables.a, tables.rate)
+        outs[name], _ = engine.policy_stream(
+            tables.beta, tables.d_up, tables.d_ack, tables.d_down, policy=pol,
+            cfg_static=(c.Bx, c.Br, c.Back, c.alpha), aux=aux)
+    for k in ("tx", "tr", "arrive", "idle"):
+        if not torch.equal(outs["ccp"][k], outs["rateless_ccp"][k]):
+            raise AssertionError(f"rateless_ccp's {k} trace differs from ccp's")
+    phase("rateless-pacing-equals-ccp", cfg="FIG3[1]", reps=16, R=R, M=256,
+          traces="tx,tr,arrive,idle", equal="yes")
 
 
 def main() -> int:
@@ -191,6 +530,8 @@ def main() -> int:
     from repro_torch.kernels import _nvcc
     from repro_torch.kernels.coded_matmul import coded_matmul_cuda
     from repro_torch.kernels.coded_matmul import kernel as k1
+    from repro_torch.kernels.lt_decode import kernel as k3
+    from repro_torch.kernels.lt_encode import kernel as k2
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products in full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -208,7 +549,8 @@ def main() -> int:
     # 2. Build every kernel (one nvcc per source, all at once) and load K1.
     t0 = time.perf_counter()
     libs = _nvcc.build_all(_nvcc.sources())
-    k1._lib()
+    for k in (k1, k2, k3):
+        k._lib()
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}",
           sources=",".join(libs))
     for name, lib in libs.items():
@@ -216,8 +558,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 phase("ptxas", source=name, info=repr(line.strip()))
 
-    # 3.-4. K1 against its plain version, then at the main path's shape.
+    # 3.-4. K1, K2 and K3 against their plain versions, then K1 at the main
+    # path's shape.
     check_kernel_against_plain(dev)
+    check_lt_kernels_against_plain(dev)
     main_shape = kernel_at_main_shape(dev)
     torch.cuda.empty_cache()
 
@@ -251,12 +595,26 @@ def main() -> int:
         raise AssertionError("mean CCP efficiency <= 0.99")
     engine_cpu_vs_card(dev)
 
-    # 7. Every kernel of the path.
-    print(json.dumps({"kernels": [dict(
-        name="coded_matmul", route="cuda",
-        source="src/repro_torch/csrc/coded_matmul.cu",
-        replaces="src/repro/kernels/coded_matmul/kernel.py:71",
-        launches=launches, **main_shape)]}), flush=True)
+    # 7.-8. The rateless path: the LT payload round trip on K2 and K3 (their
+    # launch counts are reset inside, just before each shape's round trip),
+    # then the rateless control plane with the decoder in the loop.
+    lt = rateless_data_plane(dev)
+    rateless_control_plane(dev)
+
+    # 9. Every kernel of the paths.
+    print(json.dumps({"kernels": [
+        dict(name="coded_matmul", route="cuda",
+             source="src/repro_torch/csrc/coded_matmul.cu",
+             replaces="src/repro/kernels/coded_matmul/kernel.py:71",
+             launches=launches, **main_shape),
+        dict(name="lt_encode", route="cuda", source="src/repro_torch/csrc/lt_encode.cu",
+             replaces="src/repro/kernels/lt_encode/kernel.py:41", **lt["lt_encode"]),
+        dict(name="lt_decode", route="cuda", source="src/repro_torch/csrc/lt_decode.cu",
+             replaces="src/repro/kernels/lt_decode/kernel.py:50", **lt["lt_decode"]),
+    ]}), flush=True)
+    for name, k in lt.items():
+        if k["launches"] < 1:
+            raise AssertionError(f"the rateless path did not launch {name}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,4 +6,4 @@ Simulation entry point: :class:`repro_torch.core.engine.Engine`; coded
 matmul: :mod:`repro_torch.core.coded_matmul` (imported on its own, as it
 pulls in the kernels)."""
 
-from . import ccp, engine, fountain, policies, simulator, theory  # noqa: F401
+from . import ccp, decode, engine, fountain, policies, simulator, theory  # noqa: F401

@@ -5,15 +5,17 @@ The engine owns the *scenario dynamics* — helper draws and per-packet
 link/compute timing — and threads a
 :class:`~repro_torch.core.policies.base.Policy` through a per-packet loop:
 the policy decides pacing (``next_load``), receipt handling
-(``on_computed``) and the completion rule (``finalize``).
+(``on_computed``) and the completion rule (``finalize``).  For a policy
+with ``uses_decoder`` the loop also runs the incremental peeling decoder
+(:mod:`repro_torch.core.decode`) on every step's arrivals.
 
 Port of the single-task static path of ``repro.core.engine``.  The
 reference's ``vmap`` over reps becomes a leading rep dimension ``(B, N, M)``
 and its ``lax.scan`` a Python loop over packet steps.  A rep is split into
 "draw tables" (:func:`draw_tables`, on a ``torch.Generator``) and "simulate
 from tables" (:func:`simulate`), so tests can feed the port tables that the
-reference drew and compare the traces.  Churn, the in-scan decoder, the
-transport line, fleets and ``shard=True`` are later slices (ROADMAP).
+reference drew and compare the traces.  Churn, the transport line, fleets
+and ``shard=True`` are later slices (ROADMAP).
 
 Typical usage::
 
@@ -35,6 +37,7 @@ import torch
 
 from .. import _device
 from . import ccp as ccp_mod
+from . import decode as decode_mod
 from . import policies as policies_mod
 from . import simulator as sim
 
@@ -62,6 +65,32 @@ def _check_R(R) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Decoder step (the reference's shared step kernels of the static path)
+# ---------------------------------------------------------------------------
+
+def _send_time_ids(sym_next, tx, sent):
+    """Send-time coded-symbol assignment: rank each rep's sends of this step
+    by their send instant (ties -> helper index, by a stable sort, as
+    ``jnp.argsort`` is) and hand out the next unissued global ids in that
+    order.  sym_next (B,) int32; tx/sent (B, N).  Unsent slots consume
+    nothing; their placeholder ids are never absorbed."""
+    order = torch.argsort(torch.where(sent, tx, torch.inf), dim=-1, stable=True)
+    rank = torch.argsort(order, dim=-1).to(torch.int32)
+    return sym_next[:, None] + rank, sym_next + sent.sum(dim=-1, dtype=torch.int32)
+
+
+def _decode_step(dec, t_hi, t_done, tables, ids, received, tr_ok):
+    """Absorb this step's result arrivals into the peeling decoder and keep
+    the real-time decode bound: every absorbed result has arrived by
+    ``t_hi``, so when ``done`` first fires the collector provably holds a
+    decodable set by then."""
+    dec = decode_mod.absorb(dec, tables, ids, received)
+    t_hi = torch.maximum(t_hi, torch.where(received, tr_ok, 0.0).amax(dim=-1))
+    t_done = torch.where(dec["done"] & ~torch.isfinite(t_done), t_hi, t_done)
+    return dec, t_hi, t_done
+
+
+# ---------------------------------------------------------------------------
 # The per-helper timeline loop (scenario dynamics x policy hooks)
 # ---------------------------------------------------------------------------
 
@@ -70,9 +99,12 @@ def policy_stream(beta, d_up, d_ack, d_down, policy, cfg_static, aux=None):
 
     beta/d_up/d_ack/d_down: (B, N, M) float32 tables.  cfg_static: the
     (Bx, Br, Back, alpha) tuple of :class:`~repro_torch.core.ccp.CCPConfig`.
-    Returns the dict of (B, N, M) trace tensors (tr, idle, tx, arrive,
-    beta, lost, backoff) plus ``tx_end`` (B, N) — the send time of the first
-    unsimulated packet.
+    Returns ``(outs, psummary)``: ``outs`` is the dict of (B, N, M) trace
+    tensors (tr, idle, tx, arrive, beta, lost, backoff and, for a decoder
+    policy, ``sym_id``, the global coded id each send carried) plus
+    ``tx_end`` (B, N) — the send time of the first unsimulated packet;
+    ``psummary`` is ``policy.summary(final_state)``, with the decoder's
+    final ``dec_count`` and ``dec_done`` (B,) for a decoder policy.
 
     Timing model per packet (helper n, packet i):
       arrive_i = tx_i + d_up_i                      (uplink)
@@ -95,6 +127,16 @@ def policy_stream(beta, d_up, d_ack, d_down, policy, cfg_static, aux=None):
     lost = torch.zeros((B, N), dtype=torch.bool, device=dev)
     ones = torch.ones((B, N), device=dev)
     outs = {k: [] for k in ("tr", "idle", "tx", "arrive", "beta", "backoff")}
+    use_dec = bool(policy.uses_decoder)
+    if use_dec:
+        # The incremental peeling decoder rides the loop: prepare() put the
+        # pool tables and the zero state under aux["decoder"].
+        tables = aux["decoder"]["tables"]
+        dec = aux["decoder"]["state0"]
+        t_hi = torch.zeros((B,), device=dev)               # max received tr so far
+        t_done = torch.full((B,), torch.inf, device=dev)   # t_hi when done fired
+        sym_next = torch.zeros((B,), dtype=torch.int32, device=dev)  # next unissued id
+        outs["sym_id"] = []
 
     for i in range(M):
         beta_i, up = beta[..., i], d_up[..., i]
@@ -107,11 +149,22 @@ def policy_stream(beta, d_up, d_ack, d_down, policy, cfg_static, aux=None):
         tr = torch.where(received, tr_ok, torch.inf)
         idle = torch.where(received, torch.maximum(arrive - done_prev, zero), 0.0)
         rtt_ack = up + d_ack[..., i]
+        dec_kw = {}
+        if use_dec:
+            # Absorb this step's arrivals before the hooks run: the feedback
+            # a policy sees at step i is everything an eagerly decoding
+            # collector has recovered from packets 0..i.
+            ids, sym_next = _send_time_ids(sym_next, tx, sent)
+            dec, t_hi, t_done = _decode_step(dec, t_hi, t_done, tables, ids,
+                                             received, tr_ok)
+            dec_kw = dict(decoded_count=dec["count"], ripple=dec["ripple"],
+                          decode_done=dec["done"], decode_t_done=t_done)
+            outs["sym_id"].append(ids)
         ctx = policies_mod.StepCtx(
             i=i, n=N, tx=tx, arrive=arrive, start=start, beta=beta_i,
             tr_ok=tr_ok, lost=lost, received=received, rtt_ack=rtt_ack,
             d_up=up, d_down=d_down[..., i], d_ack=d_ack[..., i],
-            tr_prev=tr_prev, cfg=cfg, aux=aux,
+            tr_prev=tr_prev, cfg=cfg, aux=aux, **dec_kw,
         )
         pstate = policy.on_computed(pstate, ctx)
         tx_next = policy.next_load(pstate, ctx)
@@ -126,7 +179,12 @@ def policy_stream(beta, d_up, d_ack, d_down, policy, cfg_static, aux=None):
     res = {k: torch.stack(v, dim=-1) for k, v in outs.items()}
     res["lost"] = torch.zeros((B, N, M), dtype=torch.bool, device=dev)
     res["tx_end"] = tx
-    return res
+    psum = policy.summary(pstate)
+    if use_dec:
+        # The end-of-horizon decoder state beside the policy's own summary
+        # (-> RunResult.extras dec_count / dec_done).
+        psum = dict(psum, dec_count=dec["count"], dec_done=dec["done"])
+    return res, psum
 
 
 # ---------------------------------------------------------------------------
@@ -156,15 +214,16 @@ def draw_tables(gen: torch.Generator, cfg, reps: int, R: int, M: int) -> Tables:
 
 def simulate(tables: Tables, cfg, R: int, policy) -> Dict[str, torch.Tensor]:
     """Run ``policy`` over drawn tables and extract every rep's completion
-    time, certification and per-helper statistics."""
+    time, certification and per-helper statistics.  The policy's summary
+    values come back under ``x_<name>`` keys (``RunResult.extras``)."""
     policy = _as_policy(policy)
     c = cfg.ccp_cfg(R)
     aux = policy.prepare(cfg, R, c, tables.mu, tables.a, tables.rate)
-    outs = policy_stream(tables.beta, tables.d_up, tables.d_ack, tables.d_down,
-                         policy=policy, cfg_static=(c.Bx, c.Br, c.Back, c.alpha),
-                         aux=aux)
+    outs, psum = policy_stream(
+        tables.beta, tables.d_up, tables.d_ack, tables.d_down, policy=policy,
+        cfg_static=(c.Bx, c.Br, c.Back, c.alpha), aux=aux)
     kk = R + cfg.K(R)
-    t, valid = policy.finalize(outs, aux, cfg, R, kk)
+    t, valid = policy.finalize(outs, aux, cfg, R, kk, None)  # tx_end: churn only
     tr, idle, beta = outs["tr"], outs["idle"], outs["beta"]
     eff = sim.efficiency_measured(tr, idle, beta, t)
     r_n = (torch.isfinite(tr) & (tr <= t[:, None, None])).sum(dim=-1)
@@ -173,9 +232,11 @@ def simulate(tables: Tables, cfg, R: int, policy) -> Dict[str, torch.Tensor]:
     m_steps = outs["lost"].shape[-1]
     lost_frac = outs["lost"].float().mean(dim=-1) * (
         m_steps / torch.clamp_min(n_sent, 1))
-    return dict(T=t, valid=valid, efficiency=eff, r_n=r_n, mu=tables.mu,
-                a=tables.a, rate=tables.rate,
-                max_backoff=outs["backoff"].amax(dim=-1), lost_frac=lost_frac)
+    res = dict(T=t, valid=valid, efficiency=eff, r_n=r_n, mu=tables.mu,
+               a=tables.a, rate=tables.rate,
+               max_backoff=outs["backoff"].amax(dim=-1), lost_frac=lost_frac)
+    res.update({f"x_{k}": v for k, v in psum.items()})
+    return res
 
 
 def _m_cap(cfg, kk: int, policy) -> int:
@@ -216,7 +277,8 @@ class RunResult:
     the rep MUST be dropped and counted, never averaged); efficiency /
     r_n / mu / a / rate / max_backoff / lost_frac (B, N) per-helper
     statistics; M the shared horizon actually used; policy the registry
-    name.
+    name; extras the policy's summary (``dec_count`` and ``dec_done`` (B,)
+    for the decoder policies).
     """
 
     T: torch.Tensor
@@ -228,14 +290,19 @@ class RunResult:
     rate: torch.Tensor
     max_backoff: torch.Tensor
     lost_frac: torch.Tensor
+    extras: Dict[str, torch.Tensor]
     M: int
     policy: str
 
     def __getitem__(self, key):
         return self.as_dict()[key]
 
+    def keys(self):
+        return self.as_dict().keys()
+
     def as_dict(self) -> Dict[str, object]:
         d = {f: getattr(self, f) for f in _CORE_FIELDS}
+        d.update(self.extras)
         d["M"] = self.M
         return d
 
@@ -289,7 +356,9 @@ class Engine:
             if bool(out["valid"].all()) or M >= cap or M_override is not None:
                 break
             M = min(M * 2, cap)
-        return RunResult(M=M, policy=policy.name, **out)
+        extras = {k[2:]: v for k, v in out.items() if k.startswith("x_")}
+        core = {k: v for k, v in out.items() if not k.startswith("x_")}
+        return RunResult(M=M, policy=policy.name, extras=extras, **core)
 
     def run_one(self, cfg, policy, R: int, *,
                 seed: Union[int, torch.Generator] = 0,

@@ -19,13 +19,30 @@ Protocol (port of ``repro.core.policies.base``, static path):
     Process the receipt of packet ``ctx.i``'s computed result.
 ``next_load(state, ctx) -> tx_next``
     The pacing decision: the send time of packet ``i+1`` per helper.
-``finalize(outs, aux, cfg, R, kk) -> (T, valid)``
+``on_timeout(state, ctx, tx_next) -> (state, tx_retx)``
+    Only invoked under churn (a later slice; the static path never loses a
+    packet).  React to lost packets and return the retransmission send
+    time.  Default: no reaction.
+``finalize(outs, aux, cfg, R, kk, tx_end) -> (T, valid)``
     Completion rule.  Default: the fountain-coded (R+K)-th order statistic
-    (:func:`repro_torch.core.simulator.completion_time`).
+    (:func:`repro_torch.core.simulator.completion_time`).  ``tx_end`` is
+    the send time of the first unsimulated packet under churn, and None on
+    the static path, as in the reference.
 ``backoff(state) -> tensor | None``
     Current timeout-backoff factor for the trace (None -> ones).
+``summary(state) -> dict``
+    Per-helper values from the final policy state, surfaced in
+    :class:`repro_torch.core.engine.RunResult` extras.
 ``horizon_hint(cfg, R, kk) -> int | None``
     Optional scan-horizon hint (see ``engine._initial_m``).
+
+Decoder feedback (``uses_decoder = True``): the engine additionally runs the
+incremental peeling decoder of :mod:`repro_torch.core.decode` inside the
+loop and fills ``StepCtx.decoded_count`` / ``ripple`` / ``decode_done`` /
+``decode_t_done``.  Such a policy's ``prepare`` returns
+``decode.decoder_aux(R, batch, device)`` under ``aux["decoder"]`` (see
+``policies/rateless.py``); its ``finalize`` typically replaces the packet
+count with :func:`repro_torch.core.decode.decode_completion`.
 
 Policies are frozen dataclasses; per-rep data flows through ``aux`` and
 ``state``, never through instance attributes.  ``register(cls)`` adds a
@@ -49,10 +66,7 @@ RING = 16  # ring-buffer slots for in-flight (Tr, TTI) pairs
 # Reference policies still to be ported, with the ROADMAP item that brings
 # each (queue 1 of ROADMAP.md).
 NOT_PORTED = {
-    "naive": "rateless/decoder slice (naive, naive_oracle)",
-    "naive_oracle": "rateless/decoder slice (naive, naive_oracle)",
-    "rateless_ccp": "rateless/decoder slice (core/decode/peeling.py)",
-    "adaptive_rate_fb": "rateless/decoder slice (core/decode/peeling.py)",
+    "adaptive_rate_fb": "baselines slice (subclasses adaptive_rate; churn machinery)",
     "uncoded_mean": "baselines slice (block policies)",
     "uncoded_mu": "baselines slice (block policies)",
     "hcmm": "baselines slice (block policies)",
@@ -84,6 +98,17 @@ class StepCtx:
     tr_prev: torch.Tensor   # Tr of the previous *received* packet
     cfg: object             # repro_torch.core.ccp.CCPConfig
     aux: dict               # policy.prepare() output
+    # Decoder feedback (filled only when policy.uses_decoder; else None),
+    # each (B,): it reflects every result absorbed through step i.
+    decoded_count: Optional[torch.Tensor] = None  # i32 recovered sources
+    ripple: Optional[torch.Tensor] = None         # i32 released this step
+    decode_done: Optional[torch.Tensor] = None    # bool all R recovered
+    # Real-time upper bound on the decode completion instant: the max
+    # arrival time over the absorbed set when decode_done first fired (+inf
+    # until then).  The loop is step-aligned, not time-aligned, so only
+    # sends at tx >= decode_t_done are provably useless; stop rules gate on
+    # this, not on decode_done alone.
+    decode_t_done: Optional[torch.Tensor] = None  # f32
 
 
 class Policy:
@@ -93,6 +118,9 @@ class Policy:
     version: int = 1
     #: horizon-cap multiple of R+K (None -> engine default: 1 on the static path)
     m_cap_factor: Optional[int] = None
+    #: True -> the engine runs the incremental peeling decoder in the loop
+    #: and fills StepCtx.decoded_count/ripple/decode_done/decode_t_done.
+    uses_decoder: bool = False
 
     def prepare(self, cfg, R: int, ccp_cfg, mu, a, rate) -> dict:
         return {}
@@ -106,12 +134,18 @@ class Policy:
     def next_load(self, state, ctx: StepCtx) -> torch.Tensor:
         raise NotImplementedError(f"{type(self).__name__}.next_load")
 
-    def finalize(self, outs, aux, cfg, R: int, kk: int):
+    def on_timeout(self, state, ctx: StepCtx, tx_next) -> Tuple[object, torch.Tensor]:
+        return state, tx_next
+
+    def finalize(self, outs, aux, cfg, R: int, kk: int, tx_end):
         from ..simulator import completion_time  # lazy: avoids import cycle
-        return completion_time(outs["tr"], kk)
+        return completion_time(outs["tr"], kk, tx_end=tx_end)
 
     def backoff(self, state):
         return None
+
+    def summary(self, state) -> dict:
+        return {}
 
     def horizon_hint(self, cfg, R: int, kk: int) -> Optional[int]:
         return None
@@ -127,10 +161,16 @@ class Policy:
 _REGISTRY: Dict[str, Callable[[], Policy]] = {}
 
 
-def register(cls):
-    """Class decorator: register a policy class under its ``name``."""
-    _REGISTRY[cls.name] = cls
-    return cls
+def register(name_or_cls, *, factory: Optional[Callable[[], Policy]] = None):
+    """Register a policy class (``@register``) or a named factory
+    (``register("naive_oracle", factory=lambda: NaivePolicy(oracle=True))``)."""
+    if isinstance(name_or_cls, str):
+        if factory is None:
+            raise ValueError("register(name, ...) requires factory=")
+        _REGISTRY[name_or_cls] = factory
+        return factory
+    _REGISTRY[name_or_cls.name] = name_or_cls
+    return name_or_cls
 
 
 def get(name: str) -> Policy:

@@ -129,19 +129,26 @@ def draw_packet_tables(gen: torch.Generator, cfg: ScenarioConfig, mu, a, rate,
 # Completion-time + efficiency extraction
 # ---------------------------------------------------------------------------
 
-def completion_time(tr: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def completion_time(tr: torch.Tensor, k: int,
+                    tx_end: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per rep, the time when the k-th computed packet reaches the collector.
 
     tr: (B, N, M).  Returns (T, valid), each (B,): ``valid`` is False if the
     per-helper horizon M was too short to certify T (some helper might have
     contributed more packets by T than were simulated) — the caller re-runs
-    with a larger M.  With fewer than k packets simulated (N*M < k) the
-    index clamps to the last packet, as the reference's does, and the rep
-    is never valid.
+    with a larger M.  With ``tx_end`` (B, N), the send time of the first
+    unsimulated packet, certification is "no helper would even have *sent*
+    packet M+1 by T".  With fewer than k packets simulated (N*M < k) the
+    index clamps to the last packet and the certification is unchanged, as
+    in the reference (whose ``flat[k - 1]`` clamps the same way).
     """
     flat = torch.sort(tr.reshape(tr.shape[0], -1), dim=-1).values
     t = flat[:, min(k, flat.shape[1]) - 1]
-    valid = (t <= tr[:, :, -1].amin(dim=-1)) & (k <= flat.shape[1])
+    if tx_end is not None:
+        valid = torch.isfinite(t) & (t <= tx_end.amin(dim=-1))
+    else:
+        valid = t <= tr[:, :, -1].amin(dim=-1)
     return t, valid
 
 

@@ -40,6 +40,15 @@
 // and first neighbour prefetched into registers and the other neighbours
 // loaded after the product.
 //
+// Non-finite input.  The plain version multiplies padding slots too, so a
+// NaN or inf in a source row that a coded block reaches only through a
+// padding slot (weight 0) makes that row of its encoded tile NaN, and then
+// the whole product row.  Compaction skips those slots, so the launch first
+// marks the source rows that padding slots reach and that hold a non-finite
+// value (nonfinite_rows.cuh); the epilogue writes NaN to the output rows
+// whose padding slots reach a marked row.  With finite input the marks cost
+// one read of the blocks padding slots name (block 0 for the LT codes).
+//
 // Bound with ctypes: a plain C interface, pointers and the stream passed as
 // void*, the launch error returned from cudaGetLastError().
 
@@ -47,7 +56,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_io.cuh"
+#include "nonfinite_rows.cuh"
+
 namespace {
+
+using tiles::from_f32;
+using tiles::to_f32;
 
 constexpr int BM = 128;       // rows of a coded block per CTA
 constexpr int BN = 128;       // output columns per CTA
@@ -56,15 +71,6 @@ constexpr int THREADS = 256;
 constexpr int A_LD = BM + 4;  // padded row of the k-major encoded tile: conflict-free stores
 constexpr int STAGE_D = 16;   // neighbour tiles staged per k tile (float32 kernel)
 constexpr int RAW_TILE = BM * BK;  // floats in one staged neighbour tile
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-    return __float2bfloat16(v);
-}
 
 // 4-byte asynchronous copy global -> shared; zero-fills when !pred (the
 // source is then not read).
@@ -98,28 +104,6 @@ struct Roles {
           ty(tid >> 4), tx(tid & 15) {}
 };
 
-// Thread 0 compacts block b's neighbour row to its nonzero-weight,
-// in-range entries; returns their count to every thread.
-__device__ __forceinline__ int compact_neighbours(const int32_t* __restrict__ idx,
-                                                  const float* __restrict__ w, int b, int d_max,
-                                                  int R, int* s_src, float* s_w, int* s_nnz) {
-    if (threadIdx.x == 0) {
-        int cnt = 0;
-        for (int j = 0; j < d_max; ++j) {
-            const float wj = w[(size_t)b * d_max + j];
-            const int src = idx[(size_t)b * d_max + j];
-            if (wj != 0.f && src >= 0 && src < R) {
-                s_src[cnt] = src;
-                s_w[cnt] = wj;
-                ++cnt;
-            }
-        }
-        *s_nnz = cnt;
-    }
-    __syncthreads();
-    return *s_nnz;
-}
-
 // Four consecutive k values of one A row, zero where masked.
 template <typename T>
 __device__ __forceinline__ void load_a4(float (&v)[4], const T* __restrict__ a, int src,
@@ -148,20 +132,36 @@ __device__ __forceinline__ void product_tile(float (&acc)[8][8], float (*As)[A_L
     }
 }
 
-// Write the 8x8 outputs once, in the output type.
+// s_bad[r] for the CTA's rows: a padding slot of block b reaches a marked
+// (non-finite) source row.  Read only after a later __syncthreads.
+__device__ __forceinline__ void mark_bad_rows(uint8_t* s_bad, const int32_t* __restrict__ idx,
+                                              const float* __restrict__ w,
+                                              const uint8_t* __restrict__ row_bad, int b,
+                                              int d_max, int R, int bm, int row0) {
+    const int row = row0 + threadIdx.x;
+    if (threadIdx.x < BM)
+        s_bad[threadIdx.x] = row < bm && nonfinite::padding_reaches_nonfinite(
+                                             idx + (size_t)b * d_max, w + (size_t)b * d_max,
+                                             d_max, R, bm, row, row_bad);
+}
+
+// Write the 8x8 outputs once, in the output type; rows marked in s_bad are
+// NaN, as 0 * inf in an encoded element makes the plain version's row.
 template <typename T>
 __device__ __forceinline__ void write_out(T* __restrict__ out, const float (&acc)[8][8],
-                                          const Roles& ro, int b, int row0, int col0, int bm,
-                                          int n) {
+                                          const Roles& ro, const uint8_t* s_bad, int b, int row0,
+                                          int col0, int bm, int n) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-        const int row = row0 + (i < 4 ? ro.ty * 4 + i : 64 + ro.ty * 4 + i - 4);
+        const int r = i < 4 ? ro.ty * 4 + i : 64 + ro.ty * 4 + i - 4;
+        const int row = row0 + r;
         if (row >= bm) continue;
+        const bool bad = s_bad[r];
         T* out_row = out + ((size_t)b * bm + row) * n;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
             const int col = col0 + (j < 4 ? ro.tx * 4 + j : 64 + ro.tx * 4 + j - 4);
-            if (col < n) out_row[col] = from_f32<T>(acc[i][j]);
+            if (col < n) out_row[col] = from_f32<T>(bad ? __int_as_float(0x7fc00000) : acc[i][j]);
         }
     }
 }
@@ -171,11 +171,12 @@ __device__ __forceinline__ void write_out(T* __restrict__ out, const float (&acc
 __global__ void __launch_bounds__(THREADS, 2)
 coded_matmul_f32_kernel(const float* __restrict__ a, const float* __restrict__ x,
                         const int32_t* __restrict__ idx, const float* __restrict__ w,
-                        float* __restrict__ out, int R, int bm, int k, int n, int d_max,
-                        int stage, int vec) {
+                        const uint8_t* __restrict__ row_bad, float* __restrict__ out, int R,
+                        int bm, int k, int n, int d_max, int stage, int vec) {
     __shared__ __align__(16) float As[2][BK][A_LD];
     __shared__ __align__(16) float Xs[2][BK][BN];
     __shared__ int s_nnz;
+    __shared__ uint8_t s_bad[BM];
     extern __shared__ __align__(16) float dyn_f32[];
     float* raw = dyn_f32;  // [stage][BM][BK]
     int* s_src = reinterpret_cast<int*>(raw + (size_t)stage * RAW_TILE);
@@ -183,7 +184,9 @@ coded_matmul_f32_kernel(const float* __restrict__ a, const float* __restrict__ x
 
     const int b = blockIdx.z, row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
     const Roles ro(threadIdx.x);
-    const int nnz = compact_neighbours(idx, w, b, d_max, R, s_src, s_w, &s_nnz);
+    const int nnz = tiles::compact_neighbours(idx + (size_t)b * d_max, w + (size_t)b * d_max,
+                                              d_max, R, s_src, s_w, &s_nnz);
+    mark_bad_rows(s_bad, idx, w, row_bad, b, d_max, R, bm, row0);
     const int staged = min(nnz, stage);
     const int a_grow = row0 + ro.a_row;
 
@@ -264,7 +267,7 @@ coded_matmul_f32_kernel(const float* __restrict__ a, const float* __restrict__ x
         __syncthreads();
         buf ^= 1;
     }
-    write_out(out, acc, ro, b, row0, col0, bm, n);
+    write_out(out, acc, ro, s_bad, b, row0, col0, bm, n);
 }
 
 // bfloat16 (and any other input type): the next tile's X and first
@@ -275,17 +278,21 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
 coded_matmul_regs_kernel(const T* __restrict__ a, const T* __restrict__ x,
                          const int32_t* __restrict__ idx, const float* __restrict__ w,
-                         T* __restrict__ out, int R, int bm, int k, int n, int d_max) {
+                         const uint8_t* __restrict__ row_bad, T* __restrict__ out, int R, int bm,
+                         int k, int n, int d_max) {
     __shared__ __align__(16) float As[2][BK][A_LD];
     __shared__ __align__(16) float Xs[2][BK][BN];
     __shared__ int s_nnz;
+    __shared__ uint8_t s_bad[BM];
     extern __shared__ int dyn_i32[];
     int* s_src = dyn_i32;
     float* s_w = reinterpret_cast<float*>(dyn_i32 + d_max);
 
     const int b = blockIdx.z, row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
     const Roles ro(threadIdx.x);
-    const int nnz = compact_neighbours(idx, w, b, d_max, R, s_src, s_w, &s_nnz);
+    const int nnz = tiles::compact_neighbours(idx + (size_t)b * d_max, w + (size_t)b * d_max,
+                                              d_max, R, s_src, s_w, &s_nnz);
+    mark_bad_rows(s_bad, idx, w, row_bad, b, d_max, R, bm, row0);
     const int a_grow = row0 + ro.a_row;
 
     float a_first[4], x_next[4];
@@ -344,7 +351,7 @@ coded_matmul_regs_kernel(const T* __restrict__ a, const T* __restrict__ x,
         __syncthreads();
         buf ^= 1;
     }
-    write_out(out, acc, ro, b, row0, col0, bm, n);
+    write_out(out, acc, ro, s_bad, b, row0, col0, bm, n);
 }
 
 }  // namespace
@@ -353,30 +360,39 @@ extern "C" {
 
 // out (C*bm, n) = coded products of a (R*bm, k) and x (k, n), both of one
 // type (dtype 0: float32, 1: bfloat16); idx (C, d_max) int32, w (C, d_max)
-// float32.  Launches on `stream` and returns cudaGetLastError().
+// float32; scratch R + R*bm bytes for the non-finite row marks.  Launches the
+// marks and the product on `stream` and returns the first CUDA error.
 int coded_matmul_launch(const void* a, const void* x, const void* idx, const void* w,
-                        void* out, int R, int bm, int k, int n, int C, int d_max,
+                        void* out, void* scratch, int R, int bm, int k, int n, int C, int d_max,
                         int dtype, void* stream) {
     const dim3 grid((n + BN - 1) / BN, (bm + BM - 1) / BM, C);
     const size_t nbr_bytes = 2 * sizeof(int) * (size_t)d_max;  // compacted neighbours
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    uint8_t* marks = static_cast<uint8_t*>(scratch);
+    const uint8_t* row_bad = marks + R;
+    const int32_t* idx32 = static_cast<const int32_t*>(idx);
+    const float* wf = static_cast<const float*>(w);
     if (dtype == 1) {
+        cudaError_t err = nonfinite::launch_marks(static_cast<const __nv_bfloat16*>(a), R, bm, k,
+                                                  idx32, wf, C * d_max, marks, s);
+        if (err != cudaSuccess) return static_cast<int>(err);
         coded_matmul_regs_kernel<__nv_bfloat16><<<grid, THREADS, nbr_bytes, s>>>(
-            static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(x),
-            static_cast<const int32_t*>(idx), static_cast<const float*>(w),
-            static_cast<__nv_bfloat16*>(out), R, bm, k, n, d_max);
+            static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(x), idx32,
+            wf, row_bad, static_cast<__nv_bfloat16*>(out), R, bm, k, n, d_max);
     } else {
+        cudaError_t err = nonfinite::launch_marks(static_cast<const float*>(a), R, bm, k, idx32,
+                                                  wf, C * d_max, marks, s);
+        if (err != cudaSuccess) return static_cast<int>(err);
         const int stage = d_max < STAGE_D ? d_max : STAGE_D;
         const int vec = k % 4 == 0 && n % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                         reinterpret_cast<uintptr_t>(x) % 16 == 0;
         const size_t smem = sizeof(float) * (size_t)stage * RAW_TILE + nbr_bytes;
-        const cudaError_t err = cudaFuncSetAttribute(
-            coded_matmul_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
+        err = cudaFuncSetAttribute(coded_matmul_f32_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(smem));
         if (err != cudaSuccess) return static_cast<int>(err);
         coded_matmul_f32_kernel<<<grid, THREADS, smem, s>>>(
-            static_cast<const float*>(a), static_cast<const float*>(x),
-            static_cast<const int32_t*>(idx), static_cast<const float*>(w),
+            static_cast<const float*>(a), static_cast<const float*>(x), idx32, wf, row_bad,
             static_cast<float*>(out), R, bm, k, n, d_max, stage, vec);
     }
     return static_cast<int>(cudaGetLastError());

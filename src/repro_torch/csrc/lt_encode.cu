@@ -1,0 +1,123 @@
+// Standalone LT encode (gather + weighted accumulate) for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel `lt_encode_pallas`
+// (src/repro/kernels/lt_encode/kernel.py, body `_kernel`).  A is R
+// row-blocks of bm rows; for every coded block b of C it computes
+//
+//     coded[b] = sum_j w[b, j] * A[idx[b, j]]        fp32 accumulation
+//
+// and writes it once in A's type.
+//
+// What bounds it on this card: it does one FMA per element read, so it is
+// bound by memory (3.35 TB/s on an H100 SXM).  The least traffic is A read
+// once and the output written once; this kernel reads each nonzero-weight
+// neighbour tile of each coded block from device memory or L2 (the TPU
+// kernel does the same: one DMA per (block, tile, slot)).
+//
+// Design.  One CTA of 256 threads owns one (column tile, row tile, coded
+// block).  Thread 0 compacts the block's idx/w row to its nonzero-weight,
+// in-range neighbours in shared memory (zero weights are padding, so a
+// systematic block reads one tile and a parity its degree).  Each thread
+// owns 16 bytes of columns (4 float32 or 8 bfloat16) in each of the tile's
+// ROWS rows: for every neighbour it issues ROWS independent 16-byte loads and
+// accumulates in fp32 registers, then writes once.  Where the columns are
+// not a multiple of the vector or a pointer is not 16-byte aligned, the same
+// loop runs on single elements with the ragged edge masked, so the caller
+// pads nothing (the TPU path pads columns to bc = 512).  The loop is
+// tiles::gather_accumulate (block_io.cuh), which lt_decode.cu shares; K2
+// takes it with a zero start, sign +1, scale 1 and read-only loads.
+//
+// Non-finite input: the plain version multiplies padding slots too (0 * inf
+// = NaN).  The launch first marks the source rows that padding slots reach
+// and that hold a non-finite value (nonfinite_rows.cuh); in a row so marked
+// the kernel adds 0 * A[idx] for each padding slot, which gives the plain
+// version's NaNs element by element.
+//
+// Bound with ctypes: a plain C interface, pointers and the stream passed as
+// void*, the launch error returned from cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "block_io.cuh"
+#include "nonfinite_rows.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int ROWS = 4;  // rows of a coded block per CTA: independent loads per neighbour
+
+template <typename T, bool VECTOR>
+__global__ void __launch_bounds__(THREADS)
+lt_encode_kernel(const T* __restrict__ a, const int32_t* __restrict__ idx,
+                 const float* __restrict__ w, const uint8_t* __restrict__ row_bad,
+                 T* __restrict__ out, int R, int bm, int cols, int d_max) {
+    constexpr int VEC = 16 / sizeof(T);
+    extern __shared__ int dyn[];
+    int* s_src = dyn;
+    float* s_w = reinterpret_cast<float*>(dyn + d_max);
+    __shared__ int s_nnz;
+    __shared__ uint8_t s_bad[ROWS];
+
+    const int b = blockIdx.z, row0 = blockIdx.y * ROWS;
+    const int c0 = (blockIdx.x * THREADS + threadIdx.x) * VEC;
+    const int32_t* idx_b = idx + (size_t)b * d_max;
+    const float* w_b = w + (size_t)b * d_max;
+    if (threadIdx.x >= 32 && threadIdx.x < 32 + ROWS) {  // read after the compaction's sync
+        const int r = threadIdx.x - 32, row = row0 + r;
+        s_bad[r] = row < bm &&
+                   nonfinite::padding_reaches_nonfinite(idx_b, w_b, d_max, R, bm, row, row_bad);
+    }
+    const int nnz = tiles::compact_neighbours(idx_b, w_b, d_max, R, s_src, s_w, &s_nnz);
+    if (c0 >= cols) return;
+    tiles::gather_accumulate<T, ROWS, VECTOR, true>(nullptr, a, out + (size_t)b * bm * cols,
+                                                    s_src, s_w, nnz, s_bad, idx_b, w_b, d_max,
+                                                    R, 1.f, 1.f, bm, row0, cols, c0);
+}
+
+template <typename T>
+int launch(const void* a, const void* idx, const void* w, void* out, void* scratch, int R,
+           int bm, int cols, int C, int d_max, cudaStream_t s) {
+    constexpr int VEC = 16 / sizeof(T);
+    const T* at = static_cast<const T*>(a);
+    const int32_t* idx32 = static_cast<const int32_t*>(idx);
+    const float* wf = static_cast<const float*>(w);
+    uint8_t* marks = static_cast<uint8_t*>(scratch);
+    cudaError_t err = nonfinite::launch_marks(at, R, bm, cols, idx32, wf, C * d_max, marks, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((cols + THREADS * VEC - 1) / (THREADS * VEC), (bm + ROWS - 1) / ROWS, C);
+    const size_t smem = 2 * sizeof(int) * (size_t)d_max;
+    const bool vector = cols % VEC == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                        reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    if (vector)
+        lt_encode_kernel<T, true><<<grid, THREADS, smem, s>>>(at, idx32, wf, marks + R,
+                                                              static_cast<T*>(out), R, bm, cols,
+                                                              d_max);
+    else
+        lt_encode_kernel<T, false><<<grid, THREADS, smem, s>>>(at, idx32, wf, marks + R,
+                                                               static_cast<T*>(out), R, bm,
+                                                               cols, d_max);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// out (C*bm, cols) = LT encode of a (R*bm, cols) (dtype 0: float32, 1:
+// bfloat16) with idx (C, d_max) int32 and w (C, d_max) float32; scratch R +
+// R*bm bytes for the non-finite row marks.  Launches on `stream` and returns
+// the first CUDA error.
+int lt_encode_launch(const void* a, const void* idx, const void* w, void* out, void* scratch,
+                     int R, int bm, int cols, int C, int d_max, int dtype, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dtype == 1) return launch<__nv_bfloat16>(a, idx, w, out, scratch, R, bm, cols, C, d_max, s);
+    return launch<float>(a, idx, w, out, scratch, R, bm, cols, C, d_max, s);
+}
+
+const char* lt_encode_error_string(int code) {
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -5,34 +5,23 @@ what bounds it); it replaces the Pallas TPU kernel
 ``repro.kernels.coded_matmul.kernel.coded_matmul_pallas``.  This wrapper
 checks what the kernel takes, allocates the output, launches on PyTorch's
 current stream without synchronising, and counts its launches in
-``coded_matmul_cuda.launches``.  It takes CUDA tensors only; the plain
-version for the CPU is ``ref.coded_matmul_ref``.
+``coded_matmul_cuda.launches``.  One launch is the non-finite row marks
+(``csrc/nonfinite_rows.cuh``) followed by the product, on one stream.  It
+takes CUDA tensors only; the plain version for the CPU is
+``ref.coded_matmul_ref``.
 """
 
 from __future__ import annotations
-
-import ctypes
-import functools
 
 import torch
 
 from .. import _nvcc
 
 SOURCE = "coded_matmul.cu"
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_Z = 65535  # CUDA's limit on the grid's z extent (one per coded block)
-_MAX_D = 2048  # neighbour slots per row: the compacted list lives in shared memory
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _nvcc.load(SOURCE)
-    lib.coded_matmul_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    lib.coded_matmul_launch.restype = ctypes.c_int
-    lib.coded_matmul_error_string.argtypes = [ctypes.c_int]
-    lib.coded_matmul_error_string.restype = ctypes.c_char_p
-    return lib
+def _lib():
+    return _nvcc.bind(SOURCE, "coded_matmul", 6, 7)
 
 
 def coded_matmul_cuda(
@@ -46,17 +35,10 @@ def coded_matmul_cuda(
     b, as a (C * bm, n) tensor of x's type.  Weights are float coefficients:
     a bool mask must be converted with ``.float()`` (0/1), never the other
     way, which would drop the parity signs."""
-    tensors = dict(a=a, x=x, idx=idx, weights=weights)
-    for name, t in tensors.items():
-        if not t.is_cuda:
-            raise ValueError(f"coded_matmul_cuda takes CUDA tensors; {name} is "
-                             f"on {t.device} (use ref.coded_matmul_ref there)")
-        if t.device != a.device:
-            raise ValueError(f"{name} is on {t.device}, a on {a.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if a.dtype not in _DTYPE_CODE or x.dtype != a.dtype:
-        raise ValueError(f"a and x must share one type of {list(_DTYPE_CODE)}; "
+    _nvcc.check_cuda("coded_matmul_cuda", "ref.coded_matmul_ref", a.device,
+                     a=a, x=x, idx=idx, weights=weights)
+    if a.dtype not in _nvcc.DTYPE_CODE or x.dtype != a.dtype:
+        raise ValueError(f"a and x must share one type of {list(_nvcc.DTYPE_CODE)}; "
                          f"got {a.dtype} and {x.dtype}")
     if idx.dtype != torch.int32 or weights.dtype != torch.float32:
         raise ValueError(f"idx must be int32 and weights float32; got "
@@ -69,23 +51,17 @@ def coded_matmul_cuda(
                          f"{tuple(idx.shape)} and {tuple(weights.shape)}")
     if bm <= 0 or a.shape[0] % bm:
         raise ValueError(f"a rows {a.shape[0]} not divisible by bm={bm}")
-    (C, d_max), (k, n) = idx.shape, x.shape
-    if C > _MAX_GRID_Z or d_max > _MAX_D:
-        raise ValueError(f"C={C} coded blocks of d_max={d_max} neighbours exceed "
-                         f"the kernel's limits ({_MAX_GRID_Z}, {_MAX_D})")
+    (C, d_max), (k, n), R = idx.shape, x.shape, a.shape[0] // bm
+    if max(C, R) > _nvcc.MAX_GRID_YZ or d_max > _nvcc.MAX_D:
+        raise ValueError(f"C={C} coded blocks of d_max={d_max} neighbours over R={R} source "
+                         f"blocks exceed the kernel's limits ({_nvcc.MAX_GRID_YZ}, {_nvcc.MAX_D})")
     out = torch.empty((C * bm, n), dtype=x.dtype, device=a.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        lib = _lib()
-        rc = lib.coded_matmul_launch(
-            a.data_ptr(), x.data_ptr(), idx.data_ptr(), weights.data_ptr(),
-            out.data_ptr(), a.shape[0] // bm, bm, k, n, C, d_max,
-            _DTYPE_CODE[a.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"coded_matmul launch failed: CUDA error {rc} "
-                           f"({lib.coded_matmul_error_string(rc).decode()})")
+    scratch = torch.empty((R + R * bm,), dtype=torch.uint8, device=a.device)  # row marks
+    _nvcc.launch(_lib(), "coded_matmul", a.device, a.data_ptr(), x.data_ptr(), idx.data_ptr(),
+                 weights.data_ptr(), out.data_ptr(), scratch.data_ptr(), R, bm, k, n, C, d_max,
+                 _nvcc.DTYPE_CODE[a.dtype])
     coded_matmul_cuda.launches += 1
     return out
 

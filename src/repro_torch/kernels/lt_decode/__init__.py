@@ -1,0 +1,3 @@
+from .kernel import lt_decode_round_cuda  # noqa: F401
+from .ops import lt_decode, lt_decode_code  # noqa: F401
+from .ref import lt_decode_ref, peel_round_ref  # noqa: F401

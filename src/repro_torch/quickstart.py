@@ -2,7 +2,9 @@
 
 1. Simulate CCP against the oracle Best on the paper's Scenario-1 setup
    (Fig. 3a: N=100, R=2000) over 200 reps, beside the eq. (27) optimum.
-2. Run a fountain-coded distributed matmul, lose each shard in turn, and
+2. The same setup with the decoder in the loop: rateless CCP completes at
+   real LT decode success, beside CCP's (R+K)-th packet count.
+3. Run a fountain-coded distributed matmul, lose each shard in turn, and
    recover y = A x from the survivors.
 
     PYTHONPATH=src python -m repro_torch.quickstart                # on the card
@@ -53,6 +55,39 @@ def ccp_vs_best(device=None, R: int = 2000, reps: int = REPS, seed: int = 0) -> 
     return out
 
 
+def rateless_vs_ccp(device=None, R: int = 2000, reps: int = REPS, seed: int = 0) -> dict:
+    """Rateless CCP (completion at the first decodable arrival set) against
+    CCP (completion at the (R+K)-th arrival) on the same draws: mean T of
+    both, whether every rateless rep is certified (valid, decoded at the
+    horizon, ``dec_count == R``), and the measured LT overhead
+    ``r_n.sum(-1) - R`` (arrivals the decode consumed beyond R; the
+    zero-loss row of ``benchmarks/fig_decode.py``)."""
+    cfg = FIG3[1]
+    eng = engine.Engine(device=device)
+    print(f"== Rateless CCP vs CCP (paper Fig. 3a setup, R={R}, {reps} reps, "
+          f"{eng.device}) ==")
+    t0 = time.perf_counter()
+    res = {name: eng.run(cfg, name, reps, R, seed=seed)
+           for name in ("rateless_ccp", "ccp")}
+    wall = time.perf_counter() - t0
+    rl = res["rateless_ccp"]
+    overhead = (rl.r_n.sum(dim=-1) - R).float()
+    out = dict(
+        T_rateless=float(rl.T.mean()), T_ccp=float(res["ccp"].T.mean()),
+        certified=bool(rl.valid.all() & rl.extras["dec_done"].all()
+                       & (rl.extras["dec_count"] == R).all()),
+        valid=all(bool(r.valid.all()) for r in res.values()),
+        overhead_mean=float(overhead.mean()), overhead_max=float(overhead.max()),
+        M={name: r.M for name, r in res.items()}, wall_s=wall,
+    )
+    print(f"  T_rateless = {out['T_rateless']:8.2f}s   (first decodable arrival set)")
+    print(f"  T_ccp      = {out['T_ccp']:8.2f}s   (R+K-th arrival)")
+    print(f"  LT overhead: mean {out['overhead_mean']:.1f}, max "
+          f"{out['overhead_max']:.0f} arrivals beyond R   every rep decoded: "
+          f"{out['certified']}   wall {wall:.2f}s\n")
+    return out
+
+
 def coded_offload(device=None, rows: int = 256, k_dim: int = 64, n_dim: int = 32,
                   n_shards: int = 4, overhead: float = 0.5, bm: int = 16,
                   seed: int = 0) -> dict:
@@ -91,4 +126,5 @@ if __name__ == "__main__":
                     help="torch device (default: cuda)")
     args = ap.parse_args()
     ccp_vs_best(args.device)
+    rateless_vs_ccp(args.device)
     coded_offload(args.device)

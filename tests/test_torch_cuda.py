@@ -72,3 +72,139 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="divisible"):
         coded_matmul_cuda(a, x, idx, w, 5)
     assert torch.equal(coded_matmul_cuda(a, x, idx, w, 8), torch.zeros((24, 4), device=card))
+
+
+# --- K2 (lt_encode) and K3 (lt_decode) --------------------------------------
+
+from repro_torch.core import decode as dec_pt  # noqa: E402
+from repro_torch.kernels.coded_matmul.ref import lt_encode_ref  # noqa: E402
+from repro_torch.kernels.lt_decode import (lt_decode, lt_decode_ref,  # noqa: E402
+                                           lt_decode_round_cuda)
+from repro_torch.kernels.lt_encode import lt_encode, lt_encode_cuda  # noqa: E402
+
+# The reference suite's test_lt_encode_sweep shapes (R, K, bm, cols), a
+# ragged shape (cols not a multiple of the 16-byte vector, odd bm) and a
+# wide one with several column tiles.
+ENC_SHAPES = [(4, 2, 8, 16), (8, 4, 16, 128), (5, 3, 8, 24), (2, 1, 128, 256),
+              (7, 5, 9, 37), (16, 16, 32, 2050)]
+# The reference suite's test_lt_decode_kernel_vs_ref_vs_offline shapes
+# (R, K, bm, cols, lost sources) and a ragged one.
+DEC_SHAPES = [(12, 10, 4, 24, 3), (20, 24, 8, 16, 6), (8, 8, 16, 40, 2), (24, 30, 5, 77, 6)]
+
+
+def _err_ok(out, ref, dtype):
+    err = float((out.float() - ref.float()).abs().max())
+    return err <= TOL[dtype] * (1.0 + float(ref.float().abs().max())), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("operand", ["mask", "weights"])
+@pytest.mark.parametrize("R,K,bm,cols", ENC_SHAPES)
+def test_lt_encode_kernel_matches_plain_version(card, R, K, bm, cols, dtype, operand):
+    code = fountain.make_lt_code(R=R, K=K, seed=R * 17 + K)
+    a = torch.as_tensor(np.random.default_rng(R + cols).standard_normal((R * bm, cols)),
+                        dtype=dtype, device=card)
+    m = code.mask if operand == "mask" else code.weights
+    idx, m = torch.as_tensor(code.idx, device=card), torch.as_tensor(m, device=card)
+    before = lt_encode_cuda.launches
+    out = lt_encode(a, idx, m, bm=bm)
+    ref = lt_encode_ref(a, idx, m, bm)
+    torch.cuda.synchronize()
+    assert lt_encode_cuda.launches == before + 1
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    ok, err = _err_ok(out, ref, dtype)
+    assert ok, err
+    if operand == "weights" and (code.weights < 0).any():  # signs must not collapse
+        as_mask = lt_encode(a, idx, torch.as_tensor(code.mask, device=card), bm=bm)
+        assert not torch.equal(as_mask[R * bm:], out[R * bm:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,K,bm,cols,n_lost", DEC_SHAPES)
+def test_lt_decode_kernel_matches_plain_version(card, R, K, bm, cols, n_lost, dtype):
+    code = dec_pt.make_decoder_code(R, K, seed=R + K, d_max=8)
+    x = torch.as_tensor(np.random.default_rng(R).standard_normal((R * bm, cols)),
+                        dtype=dtype, device=card)
+    coded = lt_encode_ref(x, torch.as_tensor(code.idx, device=card),
+                          torch.as_tensor(code.weights, device=card), bm)
+    lost = np.random.default_rng(n_lost).choice(R, size=n_lost, replace=False)
+    keep = np.setdiff1d(np.arange(R + K), lost)
+    plan = fountain.peel_decode_plan(code, keep)
+    assert plan is not None
+    crx = coded.reshape(R + K, bm, cols)[torch.as_tensor(keep, device=card)].reshape(-1, cols)
+    before = lt_decode_round_cuda.launches
+    out = lt_decode(crx, plan, bm=bm)
+    ref = lt_decode_ref(crx, plan, bm=bm)
+    torch.cuda.synchronize()
+    assert lt_decode_round_cuda.launches == before + len(fountain.plan_rounds(plan))
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    ok, err = _err_ok(out, ref, dtype)
+    assert ok, err
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, x, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["coded_matmul", "lt_encode", "lt_decode"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain_versions_on_non_finite_input(card, kernel, dtype):
+    """An inf and a NaN in source block 0, which the codes' padding slots
+    (index 0, weight 0) name: the plain versions turn 0 * inf into NaN in
+    every row a padding slot reaches; the kernels skip padding slots and must
+    give the same result, NaN-equal."""
+    rng = np.random.default_rng(11)
+    if kernel == "lt_decode":
+        R, K, bm, cols = 20, 24, 8, 16
+        code = dec_pt.make_decoder_code(R, K, seed=R + K, d_max=8)
+        x = torch.as_tensor(rng.standard_normal((R * bm, cols)), dtype=dtype, device=card)
+        coded = lt_encode_ref(x, torch.as_tensor(code.idx, device=card),
+                              torch.as_tensor(code.weights, device=card), bm)
+        keep = np.setdiff1d(np.arange(R + K), [2, 5, 11, 17])  # source 0 arrives
+        plan = fountain.peel_decode_plan(code, keep)
+        assert plan is not None and (plan.order_nbr_coef == 0).any()
+        crx = coded.reshape(R + K, bm, cols)[torch.as_tensor(keep, device=card)].reshape(-1, cols)
+        crx[2, 5], crx[6, 3] = torch.inf, torch.nan  # rows of source 0
+        out, ref = lt_decode(crx, plan, bm=bm), lt_decode_ref(crx, plan, bm=bm)
+    else:
+        R, K, bm, cols = 6, 4, 8, 24
+        code = fountain.make_lt_code(R=R, K=K, seed=1)
+        a = torch.as_tensor(rng.standard_normal((R * bm, cols)), dtype=dtype, device=card)
+        a[3, 5], a[6, 11] = torch.inf, torch.nan
+        idx, w = torch.as_tensor(code.idx, device=card), torch.as_tensor(code.weights, device=card)
+        if kernel == "lt_encode":
+            out, ref = lt_encode(a, idx, w, bm=bm), lt_encode_ref(a, idx, w, bm)
+        else:
+            xm = torch.as_tensor(rng.standard_normal((cols, 12)), dtype=dtype, device=card)
+            out, ref = coded_matmul(a, xm, idx, w, bm=bm), coded_matmul_ref(a, xm, idx, w, bm)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(ref).any())
+    finite = ref.float()[torch.isfinite(ref)].abs().max()
+    tol = TOL[dtype] * (1.0 + float(finite))
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol, equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_lt_wrappers_refuse_what_the_kernels_do_not_take(card):
+    a = torch.zeros((16, 8), device=card)
+    idx = torch.zeros((3, 2), dtype=torch.int32, device=card)
+    w = torch.ones((3, 2), device=card)
+    with pytest.raises(ValueError, match="int32"):
+        lt_encode_cuda(a, idx.long(), w, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        lt_encode_cuda(a.t().contiguous().t(), idx, w, 8)
+    with pytest.raises(ValueError, match="divisible"):
+        lt_encode_cuda(a, idx, w, 5)
+    assert torch.equal(lt_encode_cuda(a, idx, w, 8), torch.zeros((24, 8), device=card))
+    s1 = torch.zeros((1,), dtype=torch.int32, device=card)
+    f1 = torch.ones((1,), device=card)
+    with pytest.raises(ValueError, match="share one type"):
+        lt_decode_round_cuda(a.double(), a, s1, s1, idx[:1], w[:1], f1, 8)
+    with pytest.raises(ValueError, match="int32"):
+        lt_decode_round_cuda(a, a.clone(), s1.long(), s1, idx[:1], w[:1], f1, 8)
+    src = torch.zeros((16, 8), device=card)
+    lt_decode_round_cuda(a + 2.0, src, s1, s1 + 1, idx[:1], torch.zeros((1, 2), device=card),
+                         -f1, 8)
+    assert torch.equal(src[8:], torch.full((8, 8), -2.0, device=card))
+    assert torch.equal(src[:8], torch.zeros((8, 8), device=card))

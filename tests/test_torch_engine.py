@@ -12,6 +12,7 @@ import json
 import pathlib
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -48,32 +49,94 @@ def _pt_cfg(cfg):
                                  alpha=cfg.alpha)
 
 
-@pytest.mark.parametrize("policy", ["ccp", "best"])
+PORTED = ["ccp", "best", "naive", "naive_oracle", "rateless_ccp"]
+
+
+@pytest.mark.parametrize("policy", PORTED)
 def test_policy_stream_traces_match_reference(policy):
+    """Every trace of the per-packet loop, and the policy's summary, equal
+    the reference's on the same tables: times at rtol 1e-6, the integer
+    and boolean traces (``lost``, ``sym_id``) and the decoder summary
+    bitwise."""
     cfg, R, M = sim_jax.ScenarioConfig(N=20, scenario=1), 400, 256
     tabs = _jax_tables(cfg, sim_jax.batch_keys(2, seed0=5), R, M)
     c = cfg.ccp_cfg(R)
     cfg_static = (c.Bx, c.Br, c.Back, c.alpha)
     t = interop.tables_from_numpy(**tabs, device="cpu")
-    out_t = eng_pt.policy_stream(t.beta, t.d_up, t.d_ack, t.d_down,
-                                 policy=eng_pt._as_policy(policy),
-                                 cfg_static=cfg_static)
+    pol_t = eng_pt._as_policy(policy)
+    aux_t = pol_t.prepare(_pt_cfg(cfg), R, c, t.mu, t.a, t.rate)
+    out_t, sum_t = eng_pt.policy_stream(t.beta, t.d_up, t.d_ack, t.d_down,
+                                        policy=pol_t, cfg_static=cfg_static,
+                                        aux=aux_t)
     for r in range(2):
-        out_j, _ = eng_jax.policy_stream(
+        pol_j = pol_jax.get(policy)
+        aux_j = pol_j.prepare(cfg, R, c, tabs["mu"][r], tabs["a"][r], tabs["rate"][r])
+        if "naive_to" in aux_j:
+            np.testing.assert_allclose(aux_t["naive_to"][r].numpy(),
+                                       np.asarray(aux_j["naive_to"]), rtol=1e-6, atol=0)
+        out_j, sum_j = eng_jax.policy_stream(
             tabs["beta"][r], tabs["d_up"][r], tabs["d_ack"][r], tabs["d_down"][r],
-            policy=pol_jax.get(policy), cfg_static=cfg_static)
-        assert set(out_t) == set(out_j)
-        for k, vj in out_j.items():
-            vt, vj = out_t[k][r].numpy(), np.asarray(vj)
+            policy=pol_j, cfg_static=cfg_static, aux=aux_j)
+        assert set(out_t) == set(out_j) and set(sum_t) == set(sum_j)
+        for k, vj in list(out_j.items()) + list(sum_j.items()):
+            vt, vj = (out_t[k] if k in out_t else sum_t[k])[r].numpy(), np.asarray(vj)
             assert vt.shape == vj.shape, k
-            if k == "lost":
-                assert np.array_equal(vt, vj)
+            if vj.dtype.kind in "bi":
+                assert np.array_equal(vt, vj), k
             else:
                 np.testing.assert_allclose(vt, vj, rtol=1e-6, atol=0, err_msg=k)
+    if policy == "rateless_ccp":
+        assert out_t["sym_id"].dtype == torch.int32
+
+
+@pytest.mark.parametrize("policy", ["naive", "naive_oracle", "rateless_ccp"])
+def test_simulate_matches_reference_run(policy):
+    """The whole rep pipeline after the draw (prepare, loop, finalize,
+    statistics) equals the reference's ``_sim_one`` on the same keys: T and
+    efficiency at rtol 1e-6, valid, r_n and the extras exactly."""
+    cfg, R, M = sim_jax.ScenarioConfig(N=20, scenario=1), 400, 256
+    keys = sim_jax.batch_keys(2, seed0=9)
+    tabs = _jax_tables(cfg, keys, R, M)
+    res = eng_pt.simulate(interop.tables_from_numpy(**tabs, device="cpu"),
+                          _pt_cfg(cfg), R, policy)
+    ref = eng_jax._sim_batch_jit(keys, cfg, R, M, pol_jax.get(policy))
+    assert set(res) == set(ref)
+    for k, vj in ref.items():
+        vt, vj = res[k].numpy(), np.asarray(vj)
+        if vj.dtype.kind in "bi":
+            assert np.array_equal(vt, vj), k
+        else:
+            np.testing.assert_allclose(vt, vj, rtol=1e-6, atol=0, err_msg=k)
+
+
+def test_rateless_pacing_equals_ccp_and_reports_decode_state():
+    """rateless_ccp is Algorithm 1 bit for bit on the wire (same tx, tr,
+    arrive and idle traces as ccp on the same tables); only the completion
+    rule changes.  Engine.run surfaces the decoder state in extras."""
+    cfg = sim_pt.ScenarioConfig(N=10, scenario=1)
+    R = 200
+    t = eng_pt.draw_tables(torch.Generator().manual_seed(0), cfg, 2, R, 256)
+    c = cfg.ccp_cfg(R)
+    outs = {}
+    for mode in ("ccp", "rateless_ccp"):
+        pol = eng_pt._as_policy(mode)
+        aux = pol.prepare(cfg, R, c, t.mu, t.a, t.rate)
+        outs[mode], _ = eng_pt.policy_stream(
+            t.beta, t.d_up, t.d_ack, t.d_down, policy=pol,
+            cfg_static=(c.Bx, c.Br, c.Back, c.alpha), aux=aux)
+    for k in ("tx", "tr", "arrive", "idle"):
+        assert torch.equal(outs["ccp"][k], outs["rateless_ccp"][k]), k
+    res = eng_pt.Engine(device="cpu").run(cfg, "rateless_ccp", 2, R, seed=0)
+    assert bool(res.valid.all())
+    assert bool((res.extras["dec_count"] == R).all())
+    assert bool(res.extras["dec_done"].all())
+    assert set(res.keys()) >= {"T", "dec_count", "dec_done", "M"}
+    # measured LT overhead: arrivals the decode consumed beyond R
+    assert bool((res.r_n.sum(dim=1) - R >= 0).all())
 
 
 @pytest.mark.parametrize("name", ["static_sc1_ccp", "static_sc1_best",
-                                  "static_sc2_ccp"])
+                                  "static_sc2_ccp", "static_sc1_naive"])
 def test_golden_replay_through_port(name):
     g = GOLDEN[name]
     scenario = 2 if name.startswith("static_sc2") else 1
@@ -143,14 +206,38 @@ def test_engine_run_certifies_and_reproduces():
     assert int(res.r_n.sum(dim=1).min()) >= 1000 + cfg.K(1000)
 
 
+@pytest.mark.parametrize("tx_end", [False, True])
+def test_completion_time_equals_reference_with_fewer_packets_than_k(tx_end):
+    """With N*M < k the k-th arrival index clamps to the last packet and the
+    certification is the reference's, on the same tables."""
+    rng = np.random.default_rng(3)
+    tr = rng.uniform(1.0, 50.0, (4, 5, 6)).astype(np.float32)
+    tr[0] = 7.0  # every last packet ties the largest arrival: certified
+    tr[1, :, -1] = tr[1].max()
+    ends = rng.uniform(40.0, 60.0, (4, 5)).astype(np.float32)
+    for k in (12, 30, 31, 45):
+        t, valid = sim_pt.completion_time(torch.as_tensor(tr), k,
+                                          tx_end=torch.as_tensor(ends) if tx_end else None)
+        for r in range(4):
+            tj, vj = sim_jax.completion_time(jnp.asarray(tr[r]), k,
+                                             tx_end=jnp.asarray(ends[r]) if tx_end else None)
+            assert float(t[r]) == float(tj) and bool(valid[r]) == bool(vj), (k, r)
+    t, valid = sim_pt.completion_time(torch.as_tensor(tr), 45)
+    assert bool(valid[0]) and bool(valid[1])  # the clamped rep certifies
+
+
 def test_engine_doubles_the_horizon_until_certified(monkeypatch):
     cfg = sim_pt.ScenarioConfig(N=10, scenario=1)
-    monkeypatch.setattr(sim_pt, "_horizon_shared", lambda cfg, R: 32)
+    R = 200
+    monkeypatch.setattr(sim_pt, "_horizon_shared", lambda cfg, R: 24)
     eng = eng_pt.Engine(device="cpu")
-    short = eng.run(cfg, "ccp", 3, 400, seed=1, M_override=32)
-    assert short.M == 32 and not bool(short.valid.all())
-    res = eng.run(cfg, "ccp", 3, 400, seed=1)
-    assert res.M > 32 and bool(res.valid.all())
+    short = eng.run(cfg, "ccp", 3, R, seed=1, M_override=24)
+    # Enough packets for the k-th arrival (N*M >= R+K), but a fast helper
+    # runs out of simulated packets before it: not certified.
+    assert 10 * 24 >= R + cfg.K(R)
+    assert short.M == 24 and not bool(short.valid.all())
+    res = eng.run(cfg, "ccp", 3, R, seed=1)
+    assert res.M == 48 and bool(res.valid.all())
     one = eng.run_one(cfg, "best", 400, seed=2)
     assert isinstance(one["T"], float) and one["efficiency"].shape == (10,)
     assert bool(one["valid"])
@@ -162,7 +249,7 @@ def test_engine_refusals():
     with pytest.raises(ValueError, match="known policies"):
         eng.run(cfg, "nope", 2, 100)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.run(cfg, "naive", 2, 100)
+        eng.run(cfg, "hcmm", 2, 100)
     with pytest.raises(ValueError, match="R must be"):
         eng.run(cfg, "ccp", 2, 0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -32,6 +32,8 @@ for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 from repro_torch import quickstart
 res = quickstart.coded_offload(device="cpu")
 assert max(res["rel_err"]) <= 1e-4, res
+res = quickstart.rateless_vs_ccp(device="cpu", R=100, reps=2)
+assert res["certified"], res
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
 print("OK")
 """
@@ -71,6 +73,8 @@ def test_default_device_is_cuda_and_entry_points_refuse_without_a_card():
         quickstart.coded_offload()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         quickstart.ccp_vs_best(reps=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quickstart.rateless_vs_ccp(reps=2)
     z = np.zeros((1, 4), np.float32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         interop.tables_from_numpy(z, z, z, z[..., None], z[..., None],
