@@ -7,8 +7,10 @@ against its plain PyTorch version on the card, times it at the main path's
 shape beside its bound, drives the main paths through the port's entry
 points (one C3P task: the coded-matmul data plane and the CCP control plane;
 the rateless path: the LT payload round trip on K2 and K3 and the rateless
-CCP control plane with the decoder in the loop), checks the results, and
-prints one line per phase.  The line before
+CCP control plane with the decoder in the loop; LM serving: phi4-mini-3.8b at
+its full published size through ``ServeEngine.generate``, attention on K4,
+then CCP dispatch over two replicas and the card against the CPU),
+checks the results, and prints one line per phase.  The line before
 the last is a JSON object with every kernel's launches on the main path,
 error and times; the last line is ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; so does a machine without a CUDA card,
@@ -47,6 +49,43 @@ RATELESS_LIMIT = 1e-5  # max|decoded - sources| / max|sources|: ±1 pivots, fp32
 # The main path's shape (the first "production-ish" shape of the reference's
 # kernel benchmark): A 8192x4096, X 4096x4096, 8 shards, 25% overhead.
 MAIN = dict(rows=8192, k_dim=4096, n_dim=4096, n_shards=8, overhead=0.25, bm=256)
+# K4 against its plain version: tests/test_kernels_flash_attention.py's cases,
+# a cache buffer read up to tk_valid, a row with no valid key, wide heads.
+# (B, Hq, Hkv, Tq, Tk, D, causal, window, softcap, q_offset, tk_valid)
+FA_CASES = [
+    ("mha", 1, 2, 2, 32, 32, 16, True, None, None, 0, None),
+    ("gqa", 2, 4, 2, 64, 64, 32, True, None, None, 0, None),
+    ("mqa", 1, 8, 1, 64, 64, 32, True, None, None, 0, None),
+    ("aligned", 1, 2, 2, 128, 128, 64, True, None, None, 0, None),
+    ("tk>tq", 2, 2, 1, 48, 96, 16, True, None, None, 48, None),
+    ("window8", 1, 2, 2, 64, 64, 32, True, 8, None, 0, None),
+    ("window16", 1, 2, 2, 64, 64, 32, True, 16, None, 0, None),
+    ("window64", 1, 2, 2, 64, 64, 32, True, 64, None, 0, None),
+    ("softcap10", 1, 2, 1, 32, 32, 16, True, None, 10.0, 0, None),
+    ("softcap30", 1, 2, 1, 32, 32, 16, True, None, 30.0, 0, None),
+    ("softcap50", 1, 2, 1, 32, 32, 16, True, None, 50.0, 0, None),
+    ("noncausal", 2, 2, 2, 32, 48, 16, False, None, None, 0, None),
+    ("unaligned", 1, 2, 2, 37, 53, 16, True, None, None, 16, None),
+    ("decode256", 4, 8, 2, 1, 256, 32, True, None, None, 255, None),
+    ("no-valid-key", 1, 4, 2, 5, 40, 8, True, None, None, 3, 0),
+    ("window-decode-buffer", 2, 6, 2, 1, 64, 24, True, 8, None, 40, 41),
+    ("head256", 1, 4, 4, 70, 200, 256, True, 32, None, 5, 75),
+]
+FA_TOL = {"float32": (2e-5, 1.6e-4), "bfloat16": (2e-2, 1.6e-1)}  # (rtol, atol), the reference's
+# The serving path: phi4-mini-3.8b at its published size (configs/phi4_mini_3p8b.py),
+# 4 request batches of 4 prompts of 1024 tokens, 32 new tokens each.
+SERVE = dict(arch="phi4-mini-3.8b", batches=4, batch=4, prompt=1024, new=32, max_len=2048)
+# CCPDispatcher over two replicas of that engine, the second slowed.
+DISPATCH = dict(batches=12, prompt=128, new=8, delay_s=0.75)
+# K4 at the serving path's shapes: prefill of 1023 tokens into a 2048-slot
+# cache, and a decode step at position 1040.
+FA_PREFILL = dict(B=4, Hq=24, Hkv=8, Tq=1023, buf=2048, q_offset=0, tk_valid=1023, D=128)
+FA_DECODE = dict(B=4, Hq=24, Hkv=8, Tq=1, buf=2048, q_offset=1040, tk_valid=1041, D=128)
+# The card against the CPU: phi4-mini's full width at 2 layers, logits
+# teacher-forced at each step: fp32 sums over 3072-8192 terms in another order
+# (cuBLAS against the CPU's BLAS, K4 against the plain version), two layers
+# and the tied head.
+CARD_VS_CPU = dict(n_layers=2, B=1, prompt=128, new=4, rtol=1e-4, atol=1e-4)
 
 
 def phase(name: str, **fields) -> None:
@@ -519,6 +558,350 @@ def rateless_control_plane(dev) -> None:
           traces="tx,tr,arrive,idle", equal="yes")
 
 
+def _qkv(dev, gen, B, Hq, Hkv, Tq, Tk, D, dtype):
+    import torch
+    q = (torch.randn((B, Hq, Tq, D), generator=gen, device=dev) * 0.5).to(dtype)
+    k = (torch.randn((B, Hkv, Tk, D), generator=gen, device=dev) * 0.5).to(dtype)
+    v = torch.randn((B, Hkv, Tk, D), generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def _fa_err(out, ref, dtype) -> tuple:
+    """max|out - ref|, and whether |out - ref| <= atol + rtol |ref| everywhere."""
+    import torch
+    rtol, atol = FA_TOL[str(dtype).split(".")[-1]]
+    ok = out.shape == ref.shape and bool(torch.isfinite(out).all()) and bool(
+        torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol))
+    return float((out.float() - ref.float()).abs().max()) if out.numel() else 0.0, ok
+
+
+def check_flash_attention_against_plain(dev) -> None:
+    """K4 against its plain version on the card, f32 and bf16: the reference
+    suite's cases, cache buffers read up to tk_valid (whatever lies beyond is
+    NaN, so a read or a weight there shows), a row with no valid key, wide
+    heads, and the serving path's prefill and decode shapes."""
+    import torch
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    model = [(f"phi4-{name}", c["B"], c["Hq"], c["Hkv"], c["Tq"], c["buf"], c["D"], True, None,
+              None, c["q_offset"], c["tk_valid"])
+             for name, c in (("prefill", FA_PREFILL), ("decode", FA_DECODE))]
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).split(".")[-1]
+        for name, B, Hq, Hkv, Tq, Tk, D, causal, window, cap, off, tkv in FA_CASES + model:
+            q, k, v = _qkv(dev, gen, B, Hq, Hkv, Tq, Tk, D, dt)
+            valid = Tk if tkv is None else tkv
+            k[:, :, valid:], v[:, :, valid:] = torch.nan, torch.nan
+            kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+            out = flash_attention(q, k, v, tk_valid=tkv, **kw)
+            ref = (attention_ref(q, k[:, :, :valid], v[:, :, :valid], **kw) if valid
+                   else torch.zeros_like(q))
+            torch.cuda.synchronize()
+            err, ok = _fa_err(out, ref, dt)
+            rtol, atol = FA_TOL[tag]
+            phase("k4-check", case=f"{name}-{tag}", shape=f"B{B}H{Hq}/{Hkv}Tq{Tq}Tk{Tk}D{D}",
+                  tk_valid=valid, max_abs_err=f"{err:.3e}", rtol=rtol, atol=atol)
+            if not ok:
+                raise AssertionError(f"K4 disagrees with its plain version: {name} {tag}")
+            del q, k, v, out, ref
+    torch.cuda.empty_cache()
+
+
+def flash_attention_at_path_shapes(dev) -> dict:
+    """K4, its plain version (the CPU route: attention_ref over the cache
+    buffer, masked by the valid length) and the library yardstick
+    (scaled_dot_product_attention with enable_gqa and an explicit mask, over
+    the valid prefix; the port never calls it) at the serving path's
+    prefill and decode shapes, f32, beside the bound of the same work.
+    Returns the sums over the two shapes for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_flops, attention_ref,
+                                                     flash_attention_cuda)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
+    for name, c in (("prefill", FA_PREFILL), ("decode", FA_DECODE)):
+        B, Hq, Hkv, Tq, D, tkv, off = (c[x] for x in ("B", "Hq", "Hkv", "Tq", "D", "tk_valid",
+                                                      "q_offset"))
+        q, k, v = _qkv(dev, gen, B, Hq, Hkv, Tq, c["buf"], D, torch.float32)
+        k[:, :, tkv:], v[:, :, tkv:] = 0.0, 0.0  # a zeroed cache buffer, as init_cache makes
+        out = flash_attention_cuda(q, k, v, causal=True, q_offset=off, tk_valid=tkv)
+        ref = attention_ref(q, k, v, causal=True, q_offset=off, kv_len=tkv)
+        torch.cuda.synchronize()
+        err, ok = _fa_err(out, ref, torch.float32)
+        if not ok:
+            raise AssertionError(f"K4 at the {name} shape: max|err| {err:.3e}")
+        del ref
+        kv = k[:, :, :tkv], v[:, :, :tkv]
+        q_pos = off + torch.arange(Tq, device=dev)[:, None]
+        mask = torch.arange(tkv, device=dev)[None, :] <= q_pos  # (Tq, tk_valid)
+        lib = F.scaled_dot_product_attention(q, *kv, attn_mask=mask, enable_gqa=True)
+        lib_err = float((lib - out).abs().max())
+        ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal=True, q_offset=off,
+                                                  tk_valid=tkv), 20 if Tq > 1 else 200)
+        plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=True, q_offset=off,
+                                                 kv_len=tkv), 5 if Tq > 1 else 50)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, *kv, attn_mask=mask,
+                                                                 enable_gqa=True),
+                         20 if Tq > 1 else 200)
+        # Bound: q and the output once, the valid K and V prefix once,
+        # against the useful FMAs of the causal pairs in fp32.
+        ops = attention_flops(B, Hq, Tq, tkv, D, True, None)
+        nbytes = 2 * q.numel() * 4 + 2 * B * Hkv * tkv * D * 4
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        phase(f"k4-{name}-shape", B=B, Hq=Hq, Hkv=Hkv, Tq=Tq, buffer=c["buf"], q_offset=off,
+              tk_valid=tkv, D=D, k4_ms=f"{ms:.4f}", bound_ms=f"{bound:.4f}",
+              bound_by="bytes" if t_bytes >= t_ops else "operations",
+              share_of_bound=f"{bound / ms:.3f}", gflop=f"{ops / 1e9:.4f}",
+              k4_tflops=f"{ops / ms / 1e9:.2f}", mbytes=f"{nbytes / 1e6:.2f}",
+              k4_gbps=f"{nbytes / ms / 1e6:.1f}", plain_ms=f"{plain_ms:.4f}",
+              sdpa_ms=f"{lib_ms:.4f}", sdpa_max_abs_diff=f"{lib_err:.3e}",
+              max_abs_err=f"{err:.3e}")
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("bound_ms", bound)):
+            tot[key] += val
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        tot[f"{name}_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        del q, k, v, kv, out, lib
+        torch.cuda.empty_cache()
+    # The sum is dominated by the prefill's operations bound.
+    tot["bound_by"] = tot.pop("prefill_bound_by")
+    tot.pop("decode_bound_by")
+    return tot
+
+
+def _gb(tree) -> float:
+    if isinstance(tree, dict):
+        return sum(_gb(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_gb(v) for v in tree)
+    return tree.numel() * tree.element_size() / 1e9
+
+
+def serve_main_path(dev) -> int:
+    """phi4-mini-3.8b at its full published config (32 layers, d_model 3072,
+    24 heads / 8 KV heads, head_dim 128, d_ff 8192, vocab 200064, tied
+    embeddings, fp32) on the card, random weights from a seed, through
+    ``ServeEngine.generate``: 4 request batches of 4 prompts of 1024 tokens,
+    32 new tokens each.  K4's launches are counted over exactly that run.
+    Then: the first generated token against the argmax of the no-cache
+    forward's last logits, a timed prefill and decode, and CCPDispatcher
+    over two replicas of the engine, one slowed.  Returns K4's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_loop import CCPDispatcher, ServeEngine
+
+    cfg = get_config(SERVE["arch"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServeEngine(model, params, max_len=SERVE["max_len"], device=dev)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 products on the fp32 serving path")
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, cfg.vocab, size=(SERVE["batch"], SERVE["prompt"])).astype(np.int32)
+               for _ in range(SERVE["batches"])]
+    kv_gb = (cfg.n_layers * 2 * SERVE["batch"] * cfg.n_kv_heads * SERVE["max_len"]
+             * cfg.head_dim_ * 4 / 1e9)
+
+    # The main path, counted.
+    flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    results = [engine.generate(b, n_new=SERVE["new"]) for b in batches]
+    wall = time.perf_counter() - t0
+    launches = flash_attention_cuda.launches
+    expect = SERVE["batches"] * cfg.n_layers * (1 + SERVE["new"])
+    n_tok = sum(r.size for r in results)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches != expect:
+        raise AssertionError(f"K4 launched {launches} times on the serving path, expected {expect}")
+    for r in results:
+        if not (r.shape == (SERVE["batch"], SERVE["new"]) and r.dtype == np.int32
+                and r.min() >= 0 and r.max() < cfg.vocab):
+            raise AssertionError(f"a generated batch has shape {r.shape}, range "
+                                 f"[{r.min()}, {r.max()}]")
+
+    # A timed prefill and decode of the first batch, on the device's clock.
+    toks = torch.as_tensor(batches[0], device=dev)
+    cache = model.init_cache(SERVE["batch"], SERVE["max_len"], device=dev)
+    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    with torch.no_grad():
+        start.record()
+        _, cache = model.prefill(params, toks[:, :-1], cache)
+        mid.record()
+        cur = toks[:, -1:]
+        t1 = time.perf_counter()
+        for _ in range(SERVE["new"]):
+            logits, cache = model.decode_step(params, cur, cache)
+            cur = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        enqueue = time.perf_counter() - t1
+        end.record()
+        end.synchronize()
+        decode_wall = time.perf_counter() - t1
+    prefill_ms = start.elapsed_time(mid)
+    decode_ms = mid.elapsed_time(end) / SERVE["new"]
+    if not torch.equal(cur[:, 0].cpu(), torch.as_tensor(results[0][:, -1])):
+        raise AssertionError("the timed decode's last tokens differ from generate's")
+    del cache, logits
+
+    # First generated token == argmax of the no-cache forward's last logits.
+    with torch.no_grad():
+        fwd = model.forward(params, toks)
+    expect_first = torch.argmax(fwd[:, -1], dim=-1).cpu().numpy()
+    del fwd
+    if not np.array_equal(results[0][:, 0], expect_first):
+        raise AssertionError(f"first tokens {results[0][:, 0]} != forward argmax {expect_first}")
+    phase("serve", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+          heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", head_dim=cfg.head_dim_, d_ff=cfg.d_ff,
+          vocab=cfg.vocab, dtype=cfg.param_dtype, params=cfg.n_params(),
+          weights_gb=f"{_gb(params):.3f}", kv_cache_gb=f"{kv_gb:.3f}",
+          max_memory_allocated_gb=f"{peak:.3f}", init_s=f"{init_s:.2f}",
+          batches=SERVE["batches"], batch=SERVE["batch"], prompt=SERVE["prompt"],
+          new_tokens=SERVE["new"], wall_s=f"{wall:.3f}", tokens_per_s=f"{n_tok / wall:.1f}",
+          prefill_ms=f"{prefill_ms:.2f}", decode_ms_per_step=f"{decode_ms:.3f}",
+          decode_enqueue_ms_per_step=f"{enqueue * 1e3 / SERVE['new']:.3f}",
+          decode_wall_ms_per_step=f"{decode_wall * 1e3 / SERVE['new']:.3f}",
+          k4_launches=launches, first_token="forward-argmax")
+    profile_decode(model, params, toks)
+
+    # CCP dispatch over two replicas of the engine, the second slowed.
+    def replica(delay):
+        def run(b):
+            time.sleep(delay)
+            return engine.generate(b, n_new=DISPATCH["new"])
+        return run
+
+    small = [rng.integers(0, cfg.vocab, size=(SERVE["batch"], DISPATCH["prompt"]))
+             .astype(np.int32) for _ in range(DISPATCH["batches"])]
+    t0 = time.perf_counter()
+    out, allocs = CCPDispatcher([replica(0.0), replica(DISPATCH["delay_s"])]).run(small)
+    phase("serve-dispatch", replicas=2, slow_delay_s=DISPATCH["delay_s"], batches=len(small),
+          prompt=DISPATCH["prompt"], new_tokens=DISPATCH["new"],
+          allocs="|".join(",".join(str(int(x)) for x in a) for a in allocs),
+          wall_s=f"{time.perf_counter() - t0:.3f}")
+    if not all(r is not None and r.shape == (SERVE["batch"], DISPATCH["new"]) for r in out):
+        raise AssertionError("a dispatched batch came back with the wrong shape")
+    del engine, params, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_decode(model, params, toks, steps: int = 3) -> None:
+    """Where a decode step's time goes: torch.profiler over ``steps``
+    decode steps after a prefill of ``toks[:, :-1]``; the device's busy time
+    per step by kernel family, its idle share of the steps' span (CUDA
+    events), and the kernel launches the host makes per step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cache = model.init_cache(toks.shape[0], SERVE["max_len"], device=toks.device)
+    with torch.no_grad():
+        _, cache = model.prefill(params, toks[:, :-1], cache)
+        cur = toks[:, -1:]
+        logits, cache = model.decode_step(params, cur, cache)  # warm-up
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for _ in range(steps):
+                logits, cache = model.decode_step(params, cur, cache)
+                cur = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            end.record()
+            end.synchronize()
+    span = start.elapsed_time(end) / steps
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    events = prof.key_averages()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in kern) / 1e3 / steps
+    fam = {"k4": 0.0, "gemm": 0.0}
+    for e in kern:
+        key = ("k4" if "flash_attention_kernel" in e.key else
+               "gemm" if "gemm" in e.key.lower() or "splitkreduce" in e.key.lower() else None)
+        if key:
+            fam[key] += dev_us(e) / 1e3 / steps
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+    top = sorted(kern, key=dev_us, reverse=True)[:5]
+    phase("serve-profile", steps=steps, span_ms_per_step=f"{span:.3f}",
+          device_busy_ms_per_step=f"{busy:.3f}" if kern else "not-measured",
+          idle_share=f"{1 - busy / span:.3f}" if kern else "not-measured",
+          k4_ms_per_step=f"{fam['k4']:.3f}", gemm_ms_per_step=f"{fam['gemm']:.3f}",
+          other_ms_per_step=f"{busy - fam['k4'] - fam['gemm']:.3f}",
+          launches_per_step=f"{launches / steps:.0f}",
+          top=";".join(f"{e.key[:48]}={dev_us(e) / 1e3 / steps:.3f}ms" for e in top))
+    del cache, logits
+
+
+def serve_card_vs_cpu(dev) -> None:
+    """phi4-mini's full width at 2 layers with the same weights on the card
+    (K4, cuBLAS) and on the CPU (the plain version): prefill, then the
+    logits of every decode step teacher-forced with the card's tokens, and
+    the generated tokens equal."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_loop import ServeEngine
+
+    c = CARD_VS_CPU
+    cfg = get_config(SERVE["arch"], n_layers=c["n_layers"])
+    model = build_model(cfg)
+    on_card = model.init(1, device=dev)
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_cpu(v) for v in tree]
+        return tree.cpu()
+
+    on_cpu = to_cpu(on_card)
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, size=(c["B"], c["prompt"]))
+    prompt = prompt.astype(np.int32)
+    max_len = c["prompt"] + c["new"]
+    toks_card = ServeEngine(model, on_card, max_len=max_len, device=dev).generate(prompt, c["new"])
+    toks_cpu = ServeEngine(model, on_cpu, max_len=max_len, device="cpu").generate(prompt, c["new"])
+    worst, scale = 0.0, 0.0
+    with torch.no_grad():
+        runs = []
+        for params, d in ((on_card, dev), (on_cpu, torch.device("cpu"))):
+            cache = model.init_cache(c["B"], max_len, device=d)
+            logits, cache = model.prefill(params, torch.as_tensor(prompt[:, :-1], device=d), cache)
+            steps = [logits.cpu()]
+            forced = np.concatenate([prompt[:, -1:], toks_card[:, :-1]], axis=1)
+            for t in range(c["new"]):
+                logits, cache = model.decode_step(
+                    params, torch.as_tensor(forced[:, t:t + 1], device=d), cache)
+                steps.append(logits.cpu())
+            runs.append(steps)
+    for a, b in zip(*runs):
+        worst = max(worst, float((a - b).abs().max()))
+        scale = max(scale, float(b.abs().max()))
+        if not torch.allclose(a, b, rtol=c["rtol"], atol=c["atol"]):
+            raise AssertionError(f"card and CPU logits differ by {worst:.3e}")
+    phase("serve-card-vs-cpu", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+          B=c["B"], prompt=c["prompt"], new_tokens=c["new"], steps=len(runs[0]),
+          max_abs_logit_diff=f"{worst:.3e}", max_abs_logit=f"{scale:.3f}",
+          rtol=c["rtol"], atol=c["atol"], tokens_equal=bool(np.array_equal(toks_card, toks_cpu)))
+    if not np.array_equal(toks_card, toks_cpu):
+        raise AssertionError(f"card tokens {toks_card} != CPU tokens {toks_cpu}")
+    del on_card, on_cpu
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -530,6 +913,7 @@ def main() -> int:
     from repro_torch.kernels import _nvcc
     from repro_torch.kernels.coded_matmul import coded_matmul_cuda
     from repro_torch.kernels.coded_matmul import kernel as k1
+    from repro_torch.kernels.flash_attention import kernel as k4
     from repro_torch.kernels.lt_decode import kernel as k3
     from repro_torch.kernels.lt_encode import kernel as k2
 
@@ -546,10 +930,10 @@ def main() -> int:
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda, python=sys.version.split()[0])
 
-    # 2. Build every kernel (one nvcc per source, all at once) and load K1.
+    # 2. Build every kernel (one nvcc per source, all at once) and load them.
     t0 = time.perf_counter()
     libs = _nvcc.build_all(_nvcc.sources())
-    for k in (k1, k2, k3):
+    for k in (k1, k2, k3, k4):
         k._lib()
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}",
           sources=",".join(libs))
@@ -601,7 +985,16 @@ def main() -> int:
     lt = rateless_data_plane(dev)
     rateless_control_plane(dev)
 
-    # 9. Every kernel of the paths.
+    # 9.-11. LM serving: K4 against its plain version, K4 at the serving
+    # path's shapes, then phi4-mini-3.8b at full size through the engine
+    # (K4's launches reset just before generate), CCP dispatch over two
+    # replicas, and the card against the CPU at two layers.
+    check_flash_attention_against_plain(dev)
+    fa = flash_attention_at_path_shapes(dev)
+    fa["launches"] = serve_main_path(dev)
+    serve_card_vs_cpu(dev)
+
+    # 12. Every kernel of the paths.
     print(json.dumps({"kernels": [
         dict(name="coded_matmul", route="cuda",
              source="src/repro_torch/csrc/coded_matmul.cu",
@@ -611,6 +1004,9 @@ def main() -> int:
              replaces="src/repro/kernels/lt_encode/kernel.py:41", **lt["lt_encode"]),
         dict(name="lt_decode", route="cuda", source="src/repro_torch/csrc/lt_decode.cu",
              replaces="src/repro/kernels/lt_decode/kernel.py:50", **lt["lt_decode"]),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:100", **fa),
     ]}), flush=True)
     for name, k in lt.items():
         if k["launches"] < 1:

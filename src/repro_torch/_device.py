@@ -20,3 +20,12 @@ def resolve(device: Optional[Union[str, torch.device]] = None) -> torch.device:
             "False; pass device='cpu' to run the port on the CPU"
         )
     return dev
+
+
+def full_fp32_matmuls(device: torch.device) -> None:
+    """On a CUDA device, make fp32 matrix products run in full fp32 (no
+    TF32), as the reference's fp32 configs compute; the LM forward refuses
+    to run an fp32 model on the card otherwise."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False

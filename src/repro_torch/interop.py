@@ -3,8 +3,9 @@
 The port cannot reproduce ``jax.random`` draws, and its numpy code
 construction is a copy, so these constructors let a test hand the port the
 exact objects the reference built: an LT code or a coded-matmul plan from
-the reference's tables, and helper/packet tables the reference drew.  In
-this system they play the part that model weights play elsewhere.
+the reference's tables, helper/packet tables the reference drew (in this
+system they play the part that model weights play elsewhere), and the
+reference's LM parameter tree.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from . import _device
 from .core import engine, fountain
 from .core.coded_matmul import CodedMatmulPlan
 
-__all__ = ["lt_code_from_arrays", "plan_from_arrays", "tables_from_numpy"]
+__all__ = ["lm_params_from_numpy", "lt_code_from_arrays", "plan_from_arrays",
+           "tables_from_numpy"]
 
 
 def lt_code_from_arrays(idx, mask, coef, R: int, K: int) -> fountain.LTCode:
@@ -59,3 +61,27 @@ def tables_from_numpy(mu, a, rate, beta, d_up, d_ack, d_down,
         raise ValueError("need helper arrays (B, N) and packet tables (B, N, M); "
                          f"got {tuple(tables.mu.shape)} and {tuple(tables.beta.shape)}")
     return tables
+
+
+def lm_params_from_numpy(cfg, tree, device=None) -> dict:
+    """The port's LM parameters from the reference's parameter tree
+    (``repro.models.transformer.init_lm``'s values, leaves as numpy arrays).
+
+    The reference stacks each pattern position ``b{j}`` over a leading
+    ``n_groups`` axis (layer ``g * period + j``); the port keeps one dict per
+    layer in ``params["blocks"]``.  Leaves keep their dtype and layout
+    (``wq (d, hq, hd)``, ``wo (hq, hd, d)``, MLP ``x @ W``) and go to
+    ``device`` (CUDA by default)."""
+    dev = _device.resolve(device)
+
+    def conv(node, g=None):
+        if isinstance(node, dict):
+            return {k: conv(v, g) for k, v in node.items()}
+        arr = np.asarray(node)
+        return torch.tensor(arr if g is None else arr[g], device=dev)  # a copy
+
+    period, stacked = cfg.pattern_period, tree["blocks"]
+    params = {k: conv(v) for k, v in tree.items() if k != "blocks"}
+    params["blocks"] = [conv(stacked[f"b{i % period}"], i // period)
+                        for i in range(cfg.n_layers)]
+    return params

@@ -94,13 +94,14 @@ def load(name: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def bind(source: str, name: str, n_ptrs: int, n_ints: int) -> ctypes.CDLL:
+def bind(source: str, name: str, n_ptrs: int, n_ints: int, n_floats: int = 0) -> ctypes.CDLL:
     """The library of ``csrc/<source>`` with the C signatures of
-    ``<name>_launch(n_ptrs pointers, n_ints ints, stream)``, which returns a
-    CUDA error code, and ``<name>_error_string(code)`` set."""
+    ``<name>_launch(n_ptrs pointers, n_ints ints, n_floats floats, stream)``,
+    which returns a CUDA error code, and ``<name>_error_string(code)`` set."""
     lib = load(source)
     fn = getattr(lib, f"{name}_launch")
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     err = getattr(lib, f"{name}_error_string")
     err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p

@@ -1,0 +1,94 @@
+"""Wrapper of the flash-attention CUDA kernel (K4).
+
+The kernel is ``csrc/flash_attention.cu`` (see its header for the design
+and what bounds it); it replaces the Pallas TPU kernel
+``repro.kernels.flash_attention.kernel.flash_attention_pallas``.  This
+wrapper checks what the kernel takes, allocates the output, launches on
+PyTorch's current stream without synchronising, and counts its launches in
+``flash_attention_cuda.launches``.  ``q_offset`` and ``tk_valid`` are launch
+arguments: a decode loop calls it with a new offset each step and nothing
+is recompiled.  q, k and v may be strided views (the einsum outputs of the
+attention block) as long as their last dimension is contiguous.  It takes
+CUDA tensors only; the plain versions for the CPU are in ``ref.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .. import _nvcc
+
+SOURCE = "flash_attention.cu"
+MAX_HEAD_DIM = 256
+_INT_MAX = 2**31 - 1
+
+
+def _lib():
+    return _nvcc.bind(SOURCE, "flash_attention", 4, 21, 2)
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,  # (B, Hq, Tq, D) float32 or bfloat16
+    k: torch.Tensor,  # (B, Hkv, Tk, D), q's type
+    v: torch.Tensor,  # (B, Hkv, Tk, D), q's type
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    q_offset: int = 0,
+    tk_valid: Optional[int] = None,
+) -> torch.Tensor:
+    """Attention of q over the first ``tk_valid`` keys of k, v (all of them
+    by default), q row t at absolute position ``q_offset + t``; a (B, Hq,
+    Tq, D) contiguous tensor of q's type.  Semantics of
+    ``ref.attention_ref(..., kv_len=tk_valid)``."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError(f"flash_attention_cuda takes CUDA tensors; {name} is on "
+                             f"{t.device} (use ref.attention_ref there)")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, expected {q.device}")
+        if t.dtype not in _nvcc.DTYPE_CODE or t.dtype != q.dtype:
+            raise ValueError(f"q, k, v must share one type of {list(_nvcc.DTYPE_CODE)}; "
+                             f"got {q.dtype}, {k.dtype}, {v.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be (B, H, T, D); got {tuple(t.shape)}")
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    if k.shape != (B, Hkv, Tk, D) or v.shape != k.shape:
+        raise ValueError(f"need k, v (B, Hkv, Tk, D) = {(B, Hkv, Tk, D)}; got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"Hq={Hq} not a multiple of Hkv={Hkv}")
+    if not 0 < D <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim D={D} outside the kernel's range (1..{MAX_HEAD_DIM})")
+    tk_valid = Tk if tk_valid is None else int(tk_valid)
+    if not 0 <= tk_valid <= Tk:
+        raise ValueError(f"tk_valid={tk_valid} outside [0, Tk={Tk}]")
+    if window is not None and window < 1:
+        raise ValueError(f"window={window} must be >= 1")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap={softcap} must be > 0")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+    if max(strides + [B, Hq, Tq, Tk, abs(q_offset) + Tq]) > _INT_MAX:
+        raise ValueError("a size or stride exceeds the kernel's 32-bit arguments")
+    out = torch.empty((B, Hq, Tq, D), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    # Rows load as 4-element vectors where D, the strides and the pointers allow.
+    align = 4 * q.element_size()
+    vec = D % 4 == 0 and all(s_ % 4 == 0 for s_ in strides) and all(
+        t.data_ptr() % align == 0 for t in (q, k, v))
+    _nvcc.launch(_lib(), "flash_attention", q.device, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), out.data_ptr(), B, Hq, Hkv, Tq, Tk, D, *strides,
+                 int(q_offset), tk_valid, int(bool(causal)), int(window or 0), int(vec),
+                 _nvcc.DTYPE_CODE[q.dtype], 1.0 / (D ** 0.5),  # the TPU kernel's scale
+                 float(softcap or 0.0))
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0

@@ -1,0 +1,124 @@
+"""Plain PyTorch versions of flash attention (port of
+``repro.kernels.flash_attention.ref``): a quadratic-memory direct version
+(small shapes, ground truth) and a chunked online-softmax version with
+O(T * chunk) memory, both over (B, H, T, D) tensors in fp32 with causal
+masking, a sliding window, tanh softcap and GQA.
+
+These are the CPU route of :func:`..ops.flash_attention` and the oracle
+``chip_smoke.py`` holds the CUDA kernel against on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _kv_mask(mask: torch.Tensor, k_pos: torch.Tensor,
+             kv_len: Optional[Union[int, torch.Tensor]], B: int) -> torch.Tensor:
+    """``mask`` (Tq, Tk) broadcast to (B|1, 1, Tq, Tk), with keys at or
+    beyond ``kv_len`` (an int, or a (B,) tensor) masked out."""
+    mask = mask[None, None]
+    if kv_len is not None:
+        lens = torch.as_tensor(kv_len, device=k_pos.device).reshape(-1)
+        lens = lens.expand(B) if lens.numel() == 1 else lens
+        mask = mask & (k_pos[None, None] < lens[:, None, None, None])
+    return mask
+
+
+def attention_ref(
+    q: torch.Tensor,  # (B, Hq, Tq, D)
+    k: torch.Tensor,  # (B, Hkv, Tk, D)
+    v: torch.Tensor,  # (B, Hkv, Tk, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    q_offset: int = 0,
+    kv_len: Optional[Union[int, torch.Tensor]] = None,  # valid kv prefix: int or (B,)
+) -> torch.Tensor:
+    """Reference attention in fp32.  ``q_offset`` is the absolute position
+    of q[..., 0, :] (decode: q_offset = kv_len - Tq).  GQA: Hq % Hkv == 0,
+    KV head ``h // group`` (``repeat_interleave``, as ``jnp.repeat``).
+    ``window``: attend only to keys with q_pos - k_pos < window."""
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    kr = k.float().repeat_interleave(group, dim=1)
+    vr = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr)
+    s = s / torch.sqrt(torch.tensor(D, dtype=torch.float32))
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = q_offset + torch.arange(Tq, device=q.device)[:, None]
+    k_pos = torch.arange(Tk, device=q.device)[None, :]
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= (q_pos - k_pos) < window
+    mask = _kv_mask(mask, k_pos, kv_len, B)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = torch.where(mask, p, 0.0)
+    denom = p.sum(dim=-1, keepdim=True)
+    p = torch.where(denom > 0, p / denom, 0.0)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vr)
+    return out.to(q.dtype)
+
+
+def attention_chunked(
+    q: torch.Tensor,  # (B, Hq, Tq, D)
+    k: torch.Tensor,  # (B, Hkv, Tk, D)
+    v: torch.Tensor,  # (B, Hkv, Tk, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    q_offset: int = 0,
+    kv_len: Optional[Union[int, torch.Tensor]] = None,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Flash-style chunked attention in plain torch: a loop over kv chunks
+    with a running (max, denom, acc) online softmax.  Same semantics as
+    :func:`attention_ref`; memory O(B*H*Tq*(D + chunk))."""
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    if Tk % chunk:
+        pad = chunk - Tk % chunk
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        if kv_len is None:
+            kv_len = Tk
+        Tk = Tk + pad
+    qf = q.float() / torch.sqrt(torch.tensor(D, dtype=torch.float32))
+    q_pos = q_offset + torch.arange(Tq, device=q.device)[:, None]  # (Tq, 1)
+    m = torch.full((B, Hq, Tq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Hq, Tq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hq, Tq, D), dtype=torch.float32, device=q.device)
+    for j in range(Tk // chunk):
+        kj = k[:, :, j * chunk:(j + 1) * chunk].float().repeat_interleave(group, dim=1)
+        vj = v[:, :, j * chunk:(j + 1) * chunk].float().repeat_interleave(group, dim=1)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kj)
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        k_pos = j * chunk + torch.arange(chunk, device=q.device)[None, :]  # (1, chunk)
+        mask = torch.ones((Tq, chunk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window is not None:
+            mask &= (q_pos - k_pos) < window
+        mask = _kv_mask(mask, k_pos, kv_len, B)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = corr * l + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vj)
+        m = m_new
+    out = torch.where(l[..., None] > 0, acc / l[..., None], 0.0)
+    return out.to(q.dtype)

@@ -208,3 +208,103 @@ def test_lt_wrappers_refuse_what_the_kernels_do_not_take(card):
                          -f1, 8)
     assert torch.equal(src[8:], torch.full((8, 8), -2.0, device=card))
     assert torch.equal(src[:8], torch.zeros((8, 8), device=card))
+
+
+# --- K4 (flash_attention) ------------------------------------------------------
+
+from repro_torch.kernels.flash_attention import (attention_ref, flash_attention,  # noqa: E402
+                                                 flash_attention_cuda)
+
+# The reference suite's tolerances (tests/test_kernels_flash_attention.py):
+# rtol 2e-5 / atol 1.6e-4 in float32, 2e-2 / 1.6e-1 in bfloat16.
+FA_TOL = {torch.float32: (2e-5, 1.6e-4), torch.bfloat16: (2e-2, 1.6e-1)}
+# (B, Hq, Hkv, Tq, Tk, D, causal, window, softcap, q_offset, tk_valid): the
+# reference suite's cases, then a cache buffer read up to tk_valid (prefill
+# and decode), a row with no valid key, the wide head dims and the two
+# phi4-mini shapes of chip_smoke.py at a smaller batch.
+FA_CASES = [
+    (1, 2, 2, 32, 32, 16, True, None, None, 0, None),      # MHA
+    (2, 4, 2, 64, 64, 32, True, None, None, 0, None),      # GQA group 2
+    (1, 8, 1, 64, 64, 32, True, None, None, 0, None),      # MQA
+    (1, 2, 2, 128, 128, 64, True, None, None, 0, None),
+    (2, 2, 1, 48, 96, 16, True, None, None, 48, None),     # Tk > Tq
+    (1, 2, 2, 64, 64, 32, True, 8, None, 0, None),         # windows
+    (1, 2, 2, 64, 64, 32, True, 16, None, 0, None),
+    (1, 2, 2, 64, 64, 32, True, 64, None, 0, None),
+    (1, 2, 1, 32, 32, 16, True, None, 10.0, 0, None),      # softcaps
+    (1, 2, 1, 32, 32, 16, True, None, 30.0, 0, None),
+    (1, 2, 1, 32, 32, 16, True, None, 50.0, 0, None),
+    (2, 2, 2, 32, 48, 16, False, None, None, 0, None),     # non-causal
+    (1, 2, 2, 37, 53, 16, True, None, None, 16, None),     # unaligned
+    (4, 8, 2, 1, 256, 32, True, None, None, 255, None),    # decode
+    (2, 6, 2, 23, 64, 24, True, None, None, 0, 23),        # prefill into a cache buffer
+    (2, 6, 2, 1, 64, 24, True, 8, None, 40, 41),           # windowed decode in a buffer
+    (1, 4, 2, 5, 40, 8, True, None, None, 3, 0),           # no valid key: zero rows
+    (1, 4, 4, 70, 200, 256, True, 32, None, 5, 75),        # head dim 256
+    (1, 24, 8, 100, 256, 128, True, None, None, 0, 100),   # phi4-mini prefill
+    (2, 24, 8, 1, 2048, 128, True, None, None, 1040, 1041),  # phi4-mini decode
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal,window,softcap,q_offset,tk_valid", FA_CASES)
+def test_flash_attention_kernel_matches_plain_version(card, B, Hq, Hkv, Tq, Tk, D, causal,
+                                                      window, softcap, q_offset, tk_valid,
+                                                      dtype):
+    rng = np.random.default_rng(Tq * 1000 + Tk + D)
+    q = torch.as_tensor(rng.standard_normal((B, Hq, Tq, D)) * 0.5, dtype=dtype, device=card)
+    k = torch.as_tensor(rng.standard_normal((B, Hkv, Tk, D)) * 0.5, dtype=dtype, device=card)
+    v = torch.as_tensor(rng.standard_normal((B, Hkv, Tk, D)), dtype=dtype, device=card)
+    if tk_valid is not None:  # what lies beyond the valid prefix must never weigh in
+        k[:, :, tk_valid:], v[:, :, tk_valid:] = torch.nan, torch.nan
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    before = flash_attention_cuda.launches
+    out = flash_attention(q, k, v, tk_valid=tk_valid, **kw)
+    valid = Tk if tk_valid is None else tk_valid
+    ref = (attention_ref(q, k[:, :, :valid], v[:, :, :valid], **kw) if valid
+           else torch.zeros_like(q))
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert out.shape == ref.shape and out.dtype == dtype and out.is_contiguous()
+    rtol, atol = FA_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_takes_strided_views(card):
+    """The attention block hands the kernel einsum outputs: (B, T, H, D)
+    buffers viewed as (B, H, T, D)."""
+    rng = np.random.default_rng(0)
+    q = torch.as_tensor(rng.standard_normal((2, 9, 6, 16)), dtype=torch.float32,
+                        device=card).transpose(1, 2)
+    k = torch.as_tensor(rng.standard_normal((2, 9, 2, 16)), dtype=torch.float32,
+                        device=card).transpose(1, 2)
+    v = torch.as_tensor(rng.standard_normal((2, 9, 2, 16)), dtype=torch.float32,
+                        device=card).transpose(1, 2)
+    assert not q.is_contiguous()
+    out = flash_attention_cuda(q, k, v, causal=True)
+    ref = attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=1.6e-4)
+
+
+@pytest.mark.gpu
+def test_flash_attention_wrapper_refuses_what_the_kernel_does_not_take(card):
+    q = torch.zeros((1, 4, 3, 8), device=card)
+    kv = torch.zeros((1, 2, 5, 8), device=card)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_cuda(q.cpu(), kv, kv)
+    with pytest.raises(ValueError, match="share one type"):
+        flash_attention_cuda(q.double(), kv.double(), kv.double())
+    with pytest.raises(ValueError, match="share one type"):
+        flash_attention_cuda(q, kv.bfloat16(), kv)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros((1, 2, 3, 512), device=card)
+        flash_attention_cuda(big, big, big)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention_cuda(torch.zeros((1, 3, 3, 8), device=card), kv, kv)
+    with pytest.raises(ValueError, match="tk_valid"):
+        flash_attention_cuda(q, kv, kv, tk_valid=6)
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        flash_attention(q, kv, kv, use_kernel=False)
+    assert flash_attention_cuda(q[:, :, :0], kv, kv).shape == (1, 4, 0, 8)

@@ -12,7 +12,11 @@ import pytest
 import torch
 
 from repro_torch import _device, interop, quickstart
+from repro_torch.configs import get_config
 from repro_torch.core import engine, simulator
+from repro_torch.launch import serve as serve_launch
+from repro_torch.models import build_model
+from repro_torch.runtime.serve_loop import ServeEngine
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -34,6 +38,11 @@ res = quickstart.coded_offload(device="cpu")
 assert max(res["rel_err"]) <= 1e-4, res
 res = quickstart.rateless_vs_ccp(device="cpu", R=100, reps=2)
 assert res["certified"], res
+from repro_torch.launch import serve
+out = serve.main(["--arch", "phi4-mini-3.8b", "--smoke", "--device", "cpu", "--requests", "3",
+                  "--batch", "2", "--prompt-len", "6", "--new-tokens", "3", "--max-len", "16",
+                  "--replicas", "2"])
+assert len(out) == 3 and all(r.shape == (2, 3) for r in out), out
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
 print("OK")
 """
@@ -75,6 +84,16 @@ def test_default_device_is_cuda_and_entry_points_refuse_without_a_card():
         quickstart.ccp_vs_best(reps=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         quickstart.rateless_vs_ccp(reps=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_launch.main(["--arch", "phi4-mini-3.8b", "--smoke"])
+    model = build_model(get_config("phi4-mini-3.8b", smoke=True))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init(0)
+    params = model.init(0, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(model, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interop.lm_params_from_numpy(model.cfg, {"blocks": {}})
     z = np.zeros((1, 4), np.float32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         interop.tables_from_numpy(z, z, z, z[..., None], z[..., None],

@@ -1,0 +1,228 @@
+"""Port parity for flash attention (K4): the port's entry
+(``repro_torch.kernels.flash_attention``, which runs its plain version on CPU
+tensors) against the JAX reference's Pallas kernel in interpret mode and its
+plain versions, on the same numpy inputs.  The CUDA kernel itself is held
+against its plain version in tests/test_torch_cuda.py (card only).
+
+Tolerances are the reference suite's (tests/test_kernels_flash_attention.py):
+the sweep rtol float32 2e-5 / bfloat16 2e-2 with atol eight times that
+(the kernel sums keys tile by tile, the plain version in one pass, and a
+bf16 output rounds after either); window, softcap, non-causal, unaligned and
+decode rtol 2e-5 / atol 2e-4; the property test 3e-5 / 3e-4.  The plain
+versions against the reference's plain versions (the same fp32 arithmetic,
+summed in another order by another library) and the cached-attention
+equivalence take the float32 sweep tolerance.
+"""
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings, strategies as st
+
+from repro.kernels.flash_attention import attention_flops as flops_jax
+from repro.kernels.flash_attention import flash_attention as fa_jax
+from repro.kernels.flash_attention.kernel import flash_attention_pallas
+from repro.kernels.flash_attention.ref import attention_chunked as chunked_jax
+from repro.kernels.flash_attention.ref import attention_ref as ref_jax
+from repro.models import attention as attn_jax
+from repro.models.config import ModelConfig as ModelConfigJax
+from repro_torch.kernels.flash_attention import (attention_chunked, attention_flops,
+                                                 attention_ref, flash_attention,
+                                                 flash_attention_cuda)
+from repro_torch.kernels.flash_attention.ops import CHUNKED_THRESHOLD
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+PT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _qkv(seed, B, Hq, Hkv, Tq, Tk, D, dtype="float32"):
+    """The reference suite's draws (q, k scaled by 0.5), from numpy, rounded
+    to the working type once so both sides start equal."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((B, Hq, Tq, D)).astype(np.float32) * 0.5,
+            rng.standard_normal((B, Hkv, Tk, D)).astype(np.float32) * 0.5,
+            rng.standard_normal((B, Hkv, Tk, D)).astype(np.float32)]
+    if dtype == "bfloat16":
+        arrs = [a.astype(ml_dtypes.bfloat16).astype(np.float32) for a in arrs]
+    return arrs
+
+
+def _both(arrs, dtype="float32"):
+    return ([jnp.asarray(a).astype(JNP[dtype]) for a in arrs],
+            [torch.as_tensor(a).to(PT[dtype]) for a in arrs])
+
+
+def _close(out_t, ref_j, rtol, atol):
+    np.testing.assert_allclose(out_t.float().numpy(), np.asarray(ref_j, np.float32),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,Tq,Tk,D,bq,bk",
+    [
+        (1, 2, 2, 32, 32, 16, 16, 16),     # MHA
+        (2, 4, 2, 64, 64, 32, 32, 16),     # GQA group 2
+        (1, 8, 1, 64, 64, 32, 16, 32),     # MQA
+        (1, 2, 2, 128, 128, 64, 128, 128), # MXU-aligned
+        (2, 2, 1, 48, 96, 16, 16, 16),     # Tk > Tq (prefix cache)
+    ],
+)
+def test_flash_causal_sweep_matches_pallas(B, Hq, Hkv, Tq, Tk, D, bq, bk, dtype):
+    (qj, kj, vj), (qt, kt, vt) = _both(_qkv(0, B, Hq, Hkv, Tq, Tk, D, dtype), dtype)
+    off = Tk - Tq
+    pallas = fa_jax(qj, kj, vj, causal=True, q_offset=off, use_pallas=True,
+                    interpret=True, bq=bq, bk=bk)
+    out = flash_attention(qt, kt, vt, causal=True, q_offset=off)
+    assert out.shape == (B, Hq, Tq, D) and out.dtype == PT[dtype]
+    _close(out, pallas, TOL[dtype], TOL[dtype] * 8)
+
+
+@pytest.mark.parametrize("window", [8, 16, 64])
+def test_flash_sliding_window_matches_pallas(window):
+    (qj, kj, vj), (qt, kt, vt) = _both(_qkv(1, 1, 2, 2, 64, 64, 32))
+    pallas = fa_jax(qj, kj, vj, causal=True, window=window, use_pallas=True,
+                    interpret=True, bq=16, bk=16)
+    _close(flash_attention(qt, kt, vt, causal=True, window=window), pallas, 2e-5, 2e-4)
+
+
+@pytest.mark.parametrize("softcap", [10.0, 30.0, 50.0])
+def test_flash_softcap_matches_pallas(softcap):
+    (qj, kj, vj), (qt, kt, vt) = _both(_qkv(2, 1, 2, 1, 32, 32, 16))
+    pallas = fa_jax(qj, kj, vj, causal=True, softcap=softcap, use_pallas=True,
+                    interpret=True, bq=16, bk=16)
+    _close(flash_attention(qt, kt, vt, causal=True, softcap=softcap), pallas, 2e-5, 2e-4)
+
+
+def test_flash_noncausal_matches_pallas():
+    (qj, kj, vj), (qt, kt, vt) = _both(_qkv(3, 2, 2, 2, 32, 48, 16))
+    pallas = fa_jax(qj, kj, vj, causal=False, use_pallas=True, interpret=True, bq=16, bk=16)
+    _close(flash_attention(qt, kt, vt, causal=False), pallas, 2e-5, 2e-4)
+
+
+def test_flash_unaligned_lengths_match_pallas():
+    """Tq/Tk not multiples of the block sizes: the reference pads, the port's
+    kernel masks the ragged edge itself."""
+    (qj, kj, vj), (qt, kt, vt) = _both(_qkv(4, 1, 2, 2, 37, 53, 16))
+    pallas = fa_jax(qj, kj, vj, causal=True, q_offset=53 - 37, use_pallas=True,
+                    interpret=True, bq=16, bk=16)
+    _close(flash_attention(qt, kt, vt, causal=True, q_offset=53 - 37), pallas, 2e-5, 2e-4)
+
+
+def test_flash_decode_shape_matches_pallas():
+    """Tq=1 against a long KV cache (the serve_step shape)."""
+    (qj, kj, vj), (qt, kt, vt) = _both(_qkv(5, 4, 8, 2, 1, 256, 32))
+    pallas = fa_jax(qj, kj, vj, causal=True, q_offset=255, use_pallas=True,
+                    interpret=True, bq=16, bk=64)
+    _close(flash_attention(qt, kt, vt, causal=True, q_offset=255), pallas, 2e-5, 2e-4)
+
+
+@settings(max_examples=8, deadline=None)
+@given(
+    Tq=st.integers(8, 48),
+    extra=st.integers(0, 32),
+    Hkv=st.sampled_from([1, 2]),
+    group=st.sampled_from([1, 2, 4]),
+    window=st.sampled_from([None, 8, 32]),
+    seed=st.integers(0, 50),
+)
+def test_property_flash_matches_pallas(Tq, extra, Hkv, group, window, seed):
+    Tk = Tq + extra
+    (qj, kj, vj), (qt, kt, vt) = _both(_qkv(seed, 1, Hkv * group, Hkv, Tq, Tk, 16))
+    pallas = fa_jax(qj, kj, vj, causal=True, window=window, q_offset=extra,
+                    use_pallas=True, interpret=True, bq=16, bk=16)
+    out = flash_attention(qt, kt, vt, causal=True, window=window, q_offset=extra)
+    _close(out, pallas, 3e-5, 3e-4)
+
+
+# --- the plain versions, with q_offset and a valid prefix ---------------------
+
+@pytest.mark.parametrize(
+    "Tq,Tk,q_offset,kv_len,window,softcap,causal",
+    [
+        (5, 64, 30, [35, 12], None, None, True),       # prefill into a cache
+        (1, 64, 40, [41, 41], 8, None, True),          # windowed decode
+        (7, 48, 0, [7, 3], None, 30.0, True),          # softcap, short rows
+        (6, 40, 2, [20, 0], None, None, False),        # non-causal; a row with no key
+        (4, 2500, 2300, [2304, 1000], None, None, True),  # above the chunk threshold
+        (3, 2100, 2000, [2003, 2003], 64, 50.0, True),
+    ],
+)
+def test_plain_versions_match_reference(Tq, Tk, q_offset, kv_len, window, softcap, causal):
+    B, Hq, Hkv, D = 2, 4, 2, 8
+    (qj, kj, vj), (qt, kt, vt) = _both(_qkv(Tk + Tq, B, Hq, Hkv, Tq, Tk, D))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    lens_j, lens_t = jnp.asarray(kv_len, jnp.int32), torch.as_tensor(kv_len)
+    tol = TOL["float32"]
+    ref = ref_jax(qj, kj, vj, kv_len=lens_j, **kw)
+    _close(attention_ref(qt, kt, vt, kv_len=lens_t, **kw), ref, tol, tol * 8)
+    chunked = chunked_jax(qj, kj, vj, kv_len=lens_j, chunk=16, **kw)
+    _close(attention_chunked(qt, kt, vt, kv_len=lens_t, chunk=16, **kw), chunked, tol, tol * 8)
+    _close(attention_chunked(qt, kt, vt, kv_len=lens_t, chunk=16, **kw), ref, tol, tol * 8)
+    # The reference's cached-attention dispatch (attention_ref up to the
+    # threshold, chunked above) against the port's, at one valid length.
+    cfg = ModelConfigJax(name="t", n_layers=1, d_model=8, n_heads=Hq, n_kv_heads=Hkv,
+                         d_ff=8, vocab=8, attn_softcap=softcap)
+    cached = attn_jax._attend_cached(qj, kj, vj, kv_len[0], q_offset, cfg, window=window,
+                                     causal=causal, use_pallas=False, interpret=False)
+    out = flash_attention(qt, kt, vt, tk_valid=kv_len[0], **kw)
+    assert (Tk > CHUNKED_THRESHOLD) == (Tk > 2048)
+    _close(out, cached, tol, tol * 8)
+
+
+@pytest.mark.parametrize(
+    "pos,T,window",
+    [(0, 23, None),    # prefill
+     (23, 1, None),    # decode
+     (40, 1, 8),       # windowed decode
+     (0, 17, 8)],      # windowed prefill
+)
+def test_reference_kernel_with_runtime_offsets_equals_cached_attention(pos, T, window):
+    """Inside the reference: its Pallas kernel with q_offset=pos and
+    tk_valid=pos+T over a zero-padded cache buffer computes what its serving
+    path (attention_ref with kv_len=pos+T) computes.  This is the equivalence
+    that lets the port send prefill and decode to K4; the port's plain route
+    is held to the same result."""
+    B, Hq, Hkv, D, slots = 2, 4, 2, 16, 64
+    q, k, v = _qkv(pos * 7 + T, B, Hq, Hkv, T, pos + T, D)
+    ck = np.zeros((B, Hkv, slots, D), np.float32)
+    cv = np.zeros((B, Hkv, slots, D), np.float32)
+    ck[:, :, :pos + T], cv[:, :, :pos + T] = k, v
+    bq = 16 if T > 1 else 1
+    tq = -(-T // bq) * bq
+    q_pad = np.zeros((B, Hq, tq, D), np.float32)
+    q_pad[:, :, :T] = q
+    kernel = flash_attention_pallas(jnp.asarray(q_pad), jnp.asarray(ck), jnp.asarray(cv),
+                                    causal=True, window=window, bq=bq, bk=16, q_offset=pos,
+                                    tk_valid=pos + T, interpret=True)[:, :, :T]
+    served = ref_jax(jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), causal=True,
+                     window=window, q_offset=pos, kv_len=jnp.full((B,), pos + T, jnp.int32))
+    tol = TOL["float32"]
+    np.testing.assert_allclose(np.asarray(kernel), np.asarray(served), rtol=tol, atol=tol * 8)
+    out = flash_attention(*(torch.as_tensor(a) for a in (q, ck, cv)), causal=True,
+                          window=window, q_offset=pos, tk_valid=pos + T)
+    _close(out, served, tol, tol * 8)
+
+
+def test_attention_flops_equal_reference():
+    for args in [(4, 24, 1023, 1023, 128, True, None), (4, 24, 1, 1040, 128, True, None),
+                 (1, 2, 37, 53, 16, True, None), (2, 4, 64, 64, 32, True, 8),
+                 (1, 2, 32, 48, 16, False, None), (1, 2, 16, 40, 8, False, 4)]:
+        assert attention_flops(*args) == flops_jax(*args)
+    # The prefill shape of chip_smoke.py: 25.74 GFLOP a launch.
+    assert round(attention_flops(4, 24, 1023, 1023, 128, True, None) / 1e9, 2) == 25.74
+
+
+def test_cpu_dispatch_and_route_refusals():
+    """CPU tensors take the plain version; asking for the kernel on the CPU,
+    or handing the CUDA wrapper a CPU tensor, raises (no fallback)."""
+    q, k, v = (torch.as_tensor(a) for a in _qkv(6, 1, 2, 1, 4, 8, 8))
+    with pytest.raises(ValueError, match="use_kernel=True"):
+        flash_attention(q, k, v, use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_cuda(q, k, v)
+    torch.testing.assert_close(flash_attention(q, k, v, use_kernel=False),
+                               attention_ref(q, k, v), rtol=0, atol=0)
