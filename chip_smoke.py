@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port from ``src/repro_torch/csrc``, holds each
+Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (and shows
+from its SASS that K1's float32 product runs on the tensor cores), holds each
 against its plain PyTorch version on the card, times it at the main path's
 shape beside its bound, drives the main paths through the port's entry
 points (one C3P task: the coded-matmul data plane and the CCP control plane;
@@ -32,6 +33,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # Published peaks of one H100 SXM (NVIDIA data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
+TF32_FLOPS = 495e12  # tensor cores, dense
 
 # The sweep shapes of tests/test_kernels_coded_matmul.py: (R, K, bm, k, n).
 SWEEP = [(4, 2, 8, 16, 16), (6, 3, 16, 64, 32), (8, 4, 8, 128, 128),
@@ -132,6 +134,29 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def tensor_core_sass(lib, kernel: str) -> None:
+    """Count the tensor-core instructions (HMMA, HGMMA) that ``cuobjdump
+    -sass`` shows in each function of the built library; fail unless
+    ``kernel`` has some."""
+    import os
+    import shutil
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    for fn, n in counts.items():
+        phase("sass", source=Path(lib).name, function=fn[:96], tensor_core_instructions=n)
+    if not any(n > 0 for fn, n in counts.items() if kernel in fn):
+        raise AssertionError(f"{kernel} has no tensor-core instruction in its SASS")
+
+
 def check_kernel_against_plain(dev) -> None:
     """K1 against its plain version on the card: the reference suite's
     sweep shapes in f32 and bf16, the ragged k/n shape, and a bool mask
@@ -147,19 +172,29 @@ def check_kernel_against_plain(dev) -> None:
     cases += [("ragged-k20-n13", 4, 2, 8, 20, 13, torch.float32, "mask"),
               ("weights-pm1", 8, 4, 16, 64, 48, torch.float32, "weights"),
               ("weights-pm1-bf16", 8, 4, 16, 64, 48, torch.bfloat16, "weights")]
+    cases += [("k4096-f32", 8, 4, 32, 4096, 300, torch.float32, "weights"),
+              ("pm1-systematic-f32", 6, 4, 8, 24, 12, torch.float32, "pm1")]
     for name, R, K, bm, k, n, dt, operand in cases + [
             ("nonfinite-f32", 6, 4, 8, 24, 12, torch.float32, "nonfinite"),
-            ("nonfinite-bf16", 6, 4, 8, 24, 12, torch.bfloat16, "nonfinite")]:
+            ("nonfinite-bf16", 6, 4, 8, 24, 12, torch.bfloat16, "nonfinite"),
+            ("inf-direct-f32", 6, 4, 8, 24, 12, torch.float32, "inf-direct"),
+            ("nan-x-f32", 6, 4, 8, 24, 12, torch.float32, "nan-x")]:
         code = fountain.make_lt_code(R=R, K=K, seed=R * 31 + K)
         a = torch.randn((R * bm, k), generator=gen, device=dev).to(dt)
         x = torch.randn((k, n), generator=gen, device=dev).to(dt)
         idx = torch.as_tensor(code.idx, device=dev)
-        mask = torch.as_tensor(code.mask if operand == "mask" else code.weights,
-                               device=dev)
+        weights = code.weights.copy()
+        if operand == "pm1":  # a systematic block of weight -1: encoded, not copied
+            weights[1, weights[1].nonzero()[0][0]] = -1.0
+        mask = torch.as_tensor(code.mask if operand == "mask" else weights, device=dev)
         if operand == "nonfinite":
             # An inf in source block 0, which parity rows reach only through
             # padding slots (index 0, weight 0): 0 * inf makes those rows NaN.
             a[3, 5] = torch.inf
+        if operand == "inf-direct":  # a row a systematic block reads straight from A
+            a[bm + 2, 7] = torch.inf
+        if operand == "nan-x":
+            x[11, 2] = torch.nan
         out = coded_matmul(a, x, idx, mask, bm=bm)
         ref = coded_matmul_ref(a, x, idx, mask, bm)
         torch.cuda.synchronize()
@@ -169,8 +204,8 @@ def check_kernel_against_plain(dev) -> None:
               nan_rows=int(torch.isnan(ref).any(dim=1).sum()))
         if not (out.shape == ref.shape and err <= tol):
             raise AssertionError(f"K1 disagrees with its plain version on {name}")
-        if operand == "nonfinite" and not bool(torch.isnan(ref).any()):
-            raise AssertionError("the non-finite case made no NaN in the plain version")
+        if operand in ("nonfinite", "inf-direct", "nan-x") and bool(torch.isfinite(ref).all()):
+            raise AssertionError(f"the {operand} case made no inf or NaN in the plain version")
         if operand == "weights":
             # The ±1 weights must not collapse to the 0/1 mask: parity rows
             # differ between the two operands.
@@ -204,21 +239,35 @@ def kernel_at_main_shape(dev) -> dict:
         raise AssertionError(f"K1 at the main shape: max|err| {err:.3e} > {tol:.3e}")
     del ref
     a_enc = lt_encode_ref(a, idx, w, bm)
+    k1_precision(out, a_enc, x)
     ms = time_ms(lambda: coded_matmul_cuda(a, x, idx, w, bm), 10)
     plain_ms = time_ms(lambda: coded_matmul_ref(a, x, idx, w, bm), 5)
     lib_ms = time_ms(lambda: torch.matmul(a_enc, x), 10)
-    # Bound: each input read once and the output written once, against the
-    # product plus this plan's nonzero-weight encode FMAs, in fp32.
+    # K1's launch by kernel on the device's clock: the prologue (the encode
+    # once and the split of X^T), the tensor-core product, and under
+    # "other" the non-finite marks (memset, name_padding, mark_rows).
+    steps = kernel_device_ms(lambda: coded_matmul_cuda(a, x, idx, w, bm), 5, dict(
+        prologue_ms="coded_matmul_encode_kernel|coded_matmul_split_xt_kernel",
+        product_ms="coded_matmul_wgmma_kernel"))
+    # Bounds: each input read once and the output written once, against
+    # the operations as the kernel does them, three TF32 products on the
+    # tensor cores (the encode's FMAs run beside them on the CUDA cores);
+    # and, for comparison, the product plus this plan's nonzero-weight
+    # encode FMAs in fp32 on the CUDA cores.
     nnz = int((w != 0).sum())
     nbytes = sum(t.numel() * t.element_size() for t in (a, x, idx, w, out))
     ops = 2.0 * C * bm * k * n + 2.0 * nnz * bm * k
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 3 * 2.0 * C * bm * k * n / TF32_FLOPS * 1e3
     bound_ms = max(t_bytes, t_ops)
+    bound_fp32 = max(t_bytes, ops / FP32_FLOPS * 1e3)
     phase("k1-main-shape", A=f"{MAIN['rows']}x{k}", X=f"{k}x{n}", C=C, bm=bm,
           max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}", k1_ms=f"{ms:.4f}",
-          plain_ms=f"{plain_ms:.4f}", torch_matmul_ms=f"{lib_ms:.4f}",
-          bound_ms=f"{bound_ms:.4f}", bytes=nbytes, ops=f"{ops:.4e}",
-          k1_tflops=f"{ops / ms / 1e9:.2f}")
+          prologue_ms=f"{steps['prologue_ms']:.4f}", product_ms=f"{steps['product_ms']:.4f}",
+          marks_ms=f"{steps['other']:.4f}", plain_ms=f"{plain_ms:.4f}",
+          torch_matmul_ms=f"{lib_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+          bound_by="bytes" if t_bytes >= t_ops else "operations",
+          bound_fp32_cores_ms=f"{bound_fp32:.4f}", bytes=nbytes, ops=f"{ops:.4e}",
+          k1_tflops=f"{ops / ms / 1e9:.2f}", share_of_bound=f"{bound_ms / ms:.3f}")
     # Where K1's time goes: systematic blocks (one neighbour, a plain GEMM)
     # against parity blocks (d neighbours to encode per tile).
     degree = (w != 0).sum(dim=1)
@@ -226,10 +275,64 @@ def kernel_at_main_shape(dev) -> dict:
         idx_s, w_s = idx[sel].contiguous(), w[sel].contiguous()
         ms_s = time_ms(lambda: coded_matmul_cuda(a, x, idx_s, w_s, bm), 10)
         phase("k1-split", blocks=kind, C=idx_s.shape[0], ms=f"{ms_s:.4f}",
+              share_of_products=f"{idx_s.shape[0] / C:.3f}", share_of_time=f"{ms_s / ms:.3f}",
               product_tflops=f"{2.0 * idx_s.shape[0] * bm * k * n / ms_s / 1e9:.2f}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms,
+                bound_ms=bound_ms, bound_fp32_cores_ms=bound_fp32,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_device_ms(call, reps: int, groups: dict) -> dict:
+    """Device time of the kernels one ``call`` launches, by torch.profiler
+    over ``reps`` calls after a warm-up, ms a call: for each name of
+    ``groups``, the kernels whose name holds one of its "|"-separated
+    substrings, and under
+    "other" the rest.  Unlike CUDA events around back-to-back calls, this
+    does not count the device's idle time while the host enqueues."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    out = dict.fromkeys([*groups, "other"], 0.0)
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if e.device_type != DeviceType.CUDA or not us:
+            continue
+        key = next((g for g, subs in groups.items()
+                    if any(sub in e.key for sub in subs.split("|"))), "other")
+        out[key] += us / 1e3 / reps
+    for g in groups:
+        if not out[g] > 0:
+            raise AssertionError(f"the profiler saw no {groups[g]} kernel")
+    return out
+
+
+def k1_precision(out, a_enc, x) -> None:
+    """Why K1 runs 3xTF32: its error at the main shape against an fp64
+    product, beside cuBLAS's fp32 product and one TF32 product (cuBLAS with
+    TF32 allowed for this call only), each as a share of the fp32 tolerance
+    1e-5 x (1 + max|ref|).  Fails unless K1 keeps the tolerance."""
+    import torch
+    exact = a_enc.double() @ x.double()
+    tol = 1e-5 * (1.0 + float(exact.abs().max()))
+    errs = {"k1": float((out.double() - exact).abs().max()),
+            "fp32_matmul": float(((a_enc @ x).double() - exact).abs().max())}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        errs["tf32_matmul"] = float(((a_enc @ x).double() - exact).abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    phase("k1-precision", tol=f"{tol:.3e}",
+          **{f"{name}_err": f"{e:.3e}" for name, e in errs.items()},
+          **{f"{name}_share_of_tol": f"{e / tol:.3f}" for name, e in errs.items()})
+    if not errs["k1"] <= tol:
+        raise AssertionError(f"K1 misses the fp32 tolerance against fp64: {errs['k1']:.3e}")
 
 
 def engine_cpu_vs_card(dev) -> None:
@@ -619,6 +722,7 @@ def flash_attention_at_path_shapes(dev) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_flops, attention_ref,
                                                      flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.kernel import split_plan
 
     gen = torch.Generator(device=dev).manual_seed(6)
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
@@ -639,8 +743,15 @@ def flash_attention_at_path_shapes(dev) -> dict:
         mask = torch.arange(tkv, device=dev)[None, :] <= q_pos  # (Tq, tk_valid)
         lib = F.scaled_dot_product_attention(q, *kv, attn_mask=mask, enable_gqa=True)
         lib_err = float((lib - out).abs().max())
-        ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal=True, q_offset=off,
-                                                  tk_valid=tkv), 20 if Tq > 1 else 200)
+        def k4():
+            return flash_attention_cuda(q, k, v, causal=True, q_offset=off, tk_valid=tkv)
+
+        # The kernel's device time (profiler), and CUDA events around
+        # back-to-back calls, which also count the card waiting for the
+        # host's enqueue where a call is as short as a decode step's.
+        ms = kernel_device_ms(k4, 20 if Tq > 1 else 200,
+                              dict(k4="flash_attention_kernel"))["k4"]
+        event_ms = time_ms(k4, 20 if Tq > 1 else 200)
         plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=True, q_offset=off,
                                                  kv_len=tkv), 5 if Tq > 1 else 50)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, *kv, attn_mask=mask,
@@ -652,8 +763,15 @@ def flash_attention_at_path_shapes(dev) -> dict:
         nbytes = 2 * q.numel() * 4 + 2 * B * Hkv * tkv * D * 4
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = split_plan(B, Hq, Hkv, Tq, c["buf"], D, sms)
+        if Tq == 1 and plan.working_ctas(B, Hkv, tkv) < sms:
+            raise AssertionError(f"the decode step splits over {plan.working_ctas(B, Hkv, tkv)} "
+                                 f"working CTAs, fewer than the {sms} SMs")
         phase(f"k4-{name}-shape", B=B, Hq=Hq, Hkv=Hkv, Tq=Tq, buffer=c["buf"], q_offset=off,
-              tk_valid=tkv, D=D, k4_ms=f"{ms:.4f}", bound_ms=f"{bound:.4f}",
+              tk_valid=tkv, D=D, splits=plan.n_split, chunk=plan.chunk,
+              ctas=plan.ctas(B, Hkv), working_ctas=plan.working_ctas(B, Hkv, tkv),
+              k4_ms=f"{ms:.4f}", k4_event_ms=f"{event_ms:.4f}", bound_ms=f"{bound:.4f}",
               bound_by="bytes" if t_bytes >= t_ops else "operations",
               share_of_bound=f"{bound / ms:.3f}", gflop=f"{ops / 1e9:.4f}",
               k4_tflops=f"{ops / ms / 1e9:.2f}", mbytes=f"{nbytes / 1e6:.2f}",
@@ -938,9 +1056,13 @@ def main() -> int:
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}",
           sources=",".join(libs))
     for name, lib in libs.items():
+        fn = ""
         for line in lib.with_suffix(".log").read_text().splitlines():
+            if "Function properties for" in line:
+                fn = line.split("Function properties for", 1)[1].strip()
             if "registers" in line or "spill" in line:
-                phase("ptxas", source=name, info=repr(line.strip()))
+                phase("ptxas", source=name, function=fn[-96:], info=repr(line.strip()))
+    tensor_core_sass(libs["coded_matmul.cu"], "coded_matmul_wgmma_kernel")
 
     # 3.-4. K1, K2 and K3 against their plain versions, then K1 at the main
     # path's shape.

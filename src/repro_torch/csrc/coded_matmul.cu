@@ -1,57 +1,82 @@
 // Fused LT-encode + block matmul for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `coded_matmul_pallas`
-// (src/repro/kernels/coded_matmul/kernel.py, body `_kernel`).  A is R
+// (src/repro/kernels/coded_matmul/kernel.py:71, body `_kernel`).  A is R
 // row-blocks of bm rows; for every coded block b of C it computes
 //
 //     V[b] = (sum_j w[b, j] * A[idx[b, j]]) @ X        fp32 accumulation
 //
-// and writes V in the type of X.  As on the TPU, the encoded A tile is
-// built on chip and never written to device memory.
+// and writes V in the type of X.
 //
-// What bounds it on this card: at the main-path shape (C = 40, bm = 256,
-// k = n = 4096) the product is 2*C*bm*k*n = 3.4e11 operations against about
-// 0.37 GB that must move, so it is bound by operations.  This version runs
-// them as fp32 FMA on the CUDA cores (67 TFLOP/s peak on an H100 SXM), which
-// keeps fp32 within the reference's 1e-5 tolerance.  It uses no tensor cores
-// yet: wgmma, TMA and TF32/bf16 variants are later work.
+// What bounds it on this card.  At the main-path shape (C = 40, bm = 256,
+// k = n = 4096) the product is 2*C*bm*k*n = 3.44e11 operations against
+// about 0.37 GB that must move, so it is bound by operations.  In fp32 on
+// the CUDA cores (67 TFLOP/s on an H100 SXM) that is 5.13 ms.  The tensor
+// cores are the only way below it, and they take TF32 (10 mantissa bits).
+// One TF32 product misses the reference's fp32 tolerance, 1e-5 x (1 +
+// max|ref|), by more than 10x at that shape (an output's rounding error is
+// about 4e-4 x sqrt(k); chip_smoke.py's [k1-precision] measures both
+// against an fp64 product).  So the float32 instance runs 3xTF32:
+// each operand v splits into big = tf32(v) and small = tf32(v - big), both
+// truncated, and the product is small.big + big.small + big.big; the
+// dropped small.small term is below 2^-20 of a term.  Three TF32 products at the dense TF32 peak
+// (495 TFLOP/s) bound it at 2.08 ms; the bytes, 0.11 ms.
 //
-// Design.  One CTA (256 threads, two per SM) owns one (column tile, row
-// tile of a coded block, coded block).  It first compacts its own idx/w row
-// to the nonzero-weight neighbours (zero weights are the padding of
-// low-degree rows, so a systematic block reads one A tile and a parity d).
-// It then walks k in tiles of BK with two shared-memory buffers for the
-// encoded-A and X tiles: threads multiply the current pair (8x8 outputs per
-// thread, fp32 FMA, operands read as float4) while the next tile is on its
-// way, then encode the next A tile (sum the neighbour tiles in fp32) into
-// the other buffer.  Ragged rows (bm not a multiple of BM), k and n are
-// masked here, so the caller pads nothing.  Neighbour indices outside
-// [0, R) are skipped, never read.
+// The tensor cores' accumulator keeps fewer bits than fp32 as it adds:
+// 3xTF32 summed over all of k in one accumulator still missed the
+// tolerance on the card, because the small terms, 2^-11 of the running sum,
+// lose their low bits.  So each 32-deep k tile's products go into a fresh
+// accumulator, which the CUDA cores add to the fp32 sum after the tile;
+// its error is then below that of cuBLAS's fp32 product ([k1-precision]).
 //
-// The encode is what a plain GEMM does not have, and its dependent loads
-// are what bound a parity block: summing d neighbour tiles straight from
-// device memory costs d round trips per k tile.  So for float32 (the main
-// path) the next tile's neighbour tiles and X tile are copied into shared
-// memory with cp.async (16 bytes a copy where k and n are multiples of 4:
-// the copies, not the bytes, are what a parity block runs short of), issued
-// before the current tile's product and waited for after it; the encode
-// then reads shared memory only.  bfloat16
-// inputs (no 2-byte cp.async) take the same design with the next tile's X
-// and first neighbour prefetched into registers and the other neighbours
-// loaded after the product.
+// Design, float32 (the main path): four launches on one stream per call.
+//  1. The non-finite row marks (nonfinite_rows.cuh, below).
+//  2. The prologue encodes once.  A block with one nonzero-weight
+//     neighbour of weight exactly 1 (systematic) is read straight from A;
+//     every other block (parities, a weight -1 block, a block with no
+//     neighbour in [0, R)) is encoded once, in fp32, into its slot of a
+//     scratch buffer the wrapper allocates.  It also writes the per-block
+//     row table the product reads: the source block of a direct block, -1
+//     for a scratch slot.  Its grid runs the coded blocks fastest, so the
+//     parities that name one source row tile read it while it is in L2.
+//  3. The prologue splits X^T: wgmma takes a TF32 B operand only K-major
+//     from shared memory, and X is (k, n), so a transpose writes X^T's big
+//     and small planes, (n, kp) each, kp = k rounded up to 4 (TMA rows are
+//     multiples of 16 bytes; where k is not, A's blocks are all copied into
+//     the scratch at that stride too).  64 MB each at the main shape.
+//  4. The product: one CTA per (128 columns, 128 rows of a block, block):
+//     a producer warp keeps a 4-stage ring of (A tile, X^T big tile, X^T
+//     small tile), 32 deep, in flight by TMA (128-byte swizzle, mbarriers);
+//     two consumer warpgroups of 64 rows read their A fragments from the
+//     swizzled tile, split them in registers, and issue small.big,
+//     big.small and big.big as wgmma.m64n128k8 with A from registers and
+//     B from shared memory.  Ragged rows, k and n are masked (TMA fills
+//     zeros past the edges, the epilogue stores only inside), so the
+//     caller pads nothing; neighbour indices outside [0, R) are never
+//     read.
 //
-// Non-finite input.  The plain version multiplies padding slots too, so a
-// NaN or inf in a source row that a coded block reaches only through a
-// padding slot (weight 0) makes that row of its encoded tile NaN, and then
-// the whole product row.  Compaction skips those slots, so the launch first
-// marks the source rows that padding slots reach and that hold a non-finite
-// value (nonfinite_rows.cuh); the epilogue writes NaN to the output rows
-// whose padding slots reach a marked row.  With finite input the marks cost
-// one read of the blocks padding slots name (block 0 for the LT codes).
+// Non-finite input.  An inf splits into big = inf and small = NaN, so a
+// tensor-core output that meets an inf or a NaN comes out non-finite
+// wherever the plain fp32 product does (and only there, short of an fp32
+// overflow).  The epilogue recomputes each non-finite output as a plain
+// fp32 dot product of its encoded row and X column, which gives the plain
+// version's inf or NaN.  The plain version also multiplies padding slots
+// (weight 0), so a non-finite value in a source row that a block reaches
+// only through a padding slot makes that block's row NaN: the marks
+// pre-pass flags the source rows that padding slots reach and that hold a
+// non-finite value, and the epilogue writes NaN to the output rows whose
+// padding slots reach a marked row.  With finite input the marks cost one
+// read of the blocks padding slots name (block 0 for the LT codes).
+//
+// bfloat16 keeps the CUDA-core design (no shape of the main path uses it):
+// one CTA per (128 columns, 128 rows, block) re-encodes its A tile at every
+// k step, with the next tile's X and first neighbour prefetched into
+// registers; fp32 FMA, 8x8 outputs a thread.
 //
 // Bound with ctypes: a plain C interface, pointers and the stream passed as
 // void*, the launch error returned from cudaGetLastError().
 
+#include <cuda.h>  // CUtensorMap; cuTensorMapEncodeTiled is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,35 +89,355 @@ namespace {
 using tiles::from_f32;
 using tiles::to_f32;
 
+constexpr int THREADS = 256;  // the prologue's and the bfloat16 kernel's CTAs
+
+// s_bad[r] for the CTA's ROWS rows: a padding slot of block b reaches a
+// marked (non-finite) source row.  Read only after a later __syncthreads.
+template <int ROWS>
+__device__ __forceinline__ void mark_bad_rows(uint8_t* s_bad, const int32_t* __restrict__ idx,
+                                              const float* __restrict__ w,
+                                              const uint8_t* __restrict__ row_bad, int b,
+                                              int d_max, int R, int bm, int row0) {
+    const int row = row0 + threadIdx.x;
+    if (threadIdx.x < ROWS)
+        s_bad[threadIdx.x] = row < bm && nonfinite::padding_reaches_nonfinite(
+                                             idx + (size_t)b * d_max, w + (size_t)b * d_max,
+                                             d_max, R, bm, row, row_bad);
+}
+
+// ---- float32: prologue (encode once, split X^T) and the 3xTF32 product ----
+
+constexpr int ENC_ROWS = 4;             // prologue: rows of a coded block per CTA,
+constexpr int ENC_COLS = THREADS * 4;   // and columns (4 a thread)
+
+// One CTA per (coded block, ENC_ROWS rows, ENC_COLS columns), blocks
+// fastest.  A direct block (one nonzero-weight neighbour, weight exactly 1;
+// never when `force`) records its source in the row table and writes
+// nothing; every other block writes its encoded rows, sum_j w_j A[src_j] in
+// fp32, to its slot of `enc` (row stride kp, zero in the columns k..kp-1).
+// Padding terms are not summed: the product's epilogue applies the
+// non-finite rule.  Dynamic shared memory: d_max ids, then d_max weights.
+template <bool VECTOR>
+__global__ void __launch_bounds__(THREADS)
+coded_matmul_encode_kernel(const float* __restrict__ a, const int32_t* __restrict__ idx,
+                           const float* __restrict__ w, float* __restrict__ enc,
+                           int32_t* __restrict__ table, int R, int bm, int k, int kp,
+                           int d_max, int force) {
+    extern __shared__ int dyn_enc[];
+    int* s_src = dyn_enc;
+    float* s_w = reinterpret_cast<float*>(dyn_enc + d_max);
+    __shared__ int s_nnz;
+
+    const int b = blockIdx.x, row0 = blockIdx.y * ENC_ROWS;
+    const int c0 = blockIdx.z * ENC_COLS + threadIdx.x * 4;
+    const int nnz = tiles::compact_neighbours(idx + (size_t)b * d_max, w + (size_t)b * d_max,
+                                              d_max, R, s_src, s_w, &s_nnz);
+    const bool direct = !force && nnz == 1 && s_w[0] == 1.f;
+    if (threadIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0) table[b] = direct ? s_src[0] : -1;
+    if (direct || c0 >= kp) return;
+    float acc[ENC_ROWS][4] = {};
+    for (int j = 0; j < nnz; ++j) {
+        const float wj = s_w[j];
+        const float* base = a + ((size_t)s_src[j] * bm + row0) * k + c0;
+#pragma unroll
+        for (int r = 0; r < ENC_ROWS; ++r) {  // ENC_ROWS independent loads a neighbour
+            if (row0 + r >= bm) break;
+            float v[4];
+            if (VECTOR) tiles::load_vec<float, 4, true>(v, base + (size_t)r * k);
+            else tiles::load_edge<float, 4>(v, base + (size_t)r * k, k - c0);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[r][i] = fmaf(wj, v[i], acc[r][i]);
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < ENC_ROWS; ++r) {
+        if (row0 + r >= bm) break;
+        *reinterpret_cast<float4*>(enc + ((size_t)b * bm + row0 + r) * kp + c0) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    }
+}
+
+// v = big + small, both TF32, by truncation: big keeps v's top 10 mantissa
+// bits, rest = v - big is exact, and small keeps rest's top 10; what small
+// drops is below 2^-20 |v|.  One AND each, where cvt.rna took longer on the
+// card, and an AND keeps inf and NaN as they are (rounding by adding half
+// of the dropped bits would carry CUDA's NaN, 0x7fffffff, into -0).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+    big = __float_as_uint(v) & 0xFFFFE000u;
+    const float rest = v - __uint_as_float(big);
+    small = __float_as_uint(rest) & 0xFFFFE000u;
+}
+
+// The plain fp32 dot product of one encoded row and one X column: the
+// plain version's value where the tensor-core sum is not finite.
+__device__ __noinline__ float plain_dot(const float* __restrict__ a_row,
+                                        const float* __restrict__ x, int k, int n, int col) {
+    float s = 0.f;
+    for (int i = 0; i < k; ++i) s = fmaf(a_row[i], x[(size_t)i * n + col], s);
+    return s;
+}
+
+// ---- float32 product on wgmma, fed by TMA ------------------------------------
+
+constexpr int WG_BM = 128, WG_BN = 128, WG_BK = 32, WG_STAGES = 4;
+constexpr int WG_CONSUMERS = 2;                          // warpgroups, 64 rows each
+constexpr int WG_THREADS = 128 * WG_CONSUMERS + 32;      // + one producer warp
+constexpr int WG_TILE_BYTES = WG_BM * WG_BK * 4;         // 16 KB: 128 rows of 128 B
+constexpr int WG_STAGE_BYTES = 3 * WG_TILE_BYTES;        // A, X^T big, X^T small
+constexpr size_t WG_SMEM = (size_t)WG_STAGES * WG_STAGE_BYTES + 1024;  // + alignment
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+// Wait for the phase of `parity` to complete.  A wait that outlasts 10 s
+// traps (a launch error) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    const uint32_t addr = smem_u32(bar);
+    uint64_t t0 = 0;
+    for (int spin = 0;; ++spin) {
+        uint32_t done;
+        asm volatile(
+            "{\n .reg .pred p;\n"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+        if (done) return;
+        uint64_t now;
+        asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+        if (spin == 0) t0 = now;
+        else if (now - t0 > 10000000000ull) __trap();
+    }
+}
+// One 2D TMA tile (inner coordinate c0, row c1) into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
+                                         uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3}], [%4];\n"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+           "r"(smem_u32(bar))
+        : "memory");
+}
+// Shared-memory descriptor of a K-major tile of 128-byte rows in the
+// 128-byte swizzle (8-row atoms of 1024 bytes), starting `byte_off` bytes
+// into the row (the k8 step).
+__device__ __forceinline__ uint64_t wgmma_desc(const void* tile, int byte_off) {
+    const uint64_t addr = smem_u32(tile) + byte_off;
+    return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Registers an in-flight wgmma reads: kept (unchanged, unreused) up to here.
+__device__ __forceinline__ void keep_live(uint32_t& u, uint32_t& v) {
+    asm volatile("" : "+r"(u), "+r"(v) :: "memory");
+}
+
+// d (64 x 128, this thread's 64 floats) = (scale_d ? d : 0) + a (64 x 8,
+// registers) . b (8 x 128, shared memory, K-major), TF32 in, fp32 sum.
+__device__ __forceinline__ void wgmma_tf32_m64n128k8(float (&d)[64], const uint32_t (&a)[4],
+                                                     uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %68, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %69, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(desc_b));
+}
+
+// The prologue's X step: xt_big / xt_small (n, kp) = the TF32 split of X^T,
+// zero in the columns k..kp-1.  32 x 32 tiles through shared memory.
+__global__ void __launch_bounds__(256)
+coded_matmul_split_xt_kernel(const float* __restrict__ x, float* __restrict__ xt_big,
+                             float* __restrict__ xt_small, int k, int n, int kp) {
+    __shared__ float tile[32][33];
+    const int n0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
+    const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+#pragma unroll
+    for (int r = ty; r < 32; r += 8) {
+        const int kr = k0 + r, c = n0 + tx;
+        tile[r][tx] = kr < k && c < n ? x[(size_t)kr * n + c] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = ty; r < 32; r += 8) {
+        const int c = n0 + r, kc = k0 + tx;
+        if (c >= n || kc >= kp) continue;
+        uint32_t big, small;
+        split_tf32(tile[tx][r], big, small);
+        xt_big[(size_t)c * kp + kc] = __uint_as_float(big);
+        xt_small[(size_t)c * kp + kc] = __uint_as_float(small);
+    }
+}
+
+struct WgMaps {
+    CUtensorMap a, enc, xt_big, xt_small;
+};
+
+// One CTA per (128 columns, 128 rows of a block, block): warps 0-7 are two
+// consumer warpgroups (64 rows each), warp 8 the producer.  The producer's
+// lane 0 keeps WG_STAGES stages of (A tile, X^T big tile, X^T small tile)
+// in flight by TMA; a consumer reads its A fragments from the swizzled A
+// tile, splits them in registers, and issues small.big, big.small and
+// big.big as three wgmma with A from registers and B from shared memory
+// into a per-stage accumulator, which it adds to its fp32 sum.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+coded_matmul_wgmma_kernel(const __grid_constant__ WgMaps maps, const float* __restrict__ a,
+                          const float* __restrict__ x, const float* __restrict__ enc,
+                          const int32_t* __restrict__ table, const int32_t* __restrict__ idx,
+                          const float* __restrict__ w, const uint8_t* __restrict__ row_bad,
+                          float* __restrict__ out, int R, int bm, int k, int n, int kp,
+                          int d_max) {
+    extern __shared__ uint8_t wg_smem_raw[];
+    uint8_t* smem = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(wg_smem_raw) + 1023) & ~uintptr_t(1023));
+    __shared__ __align__(8) uint64_t full[WG_STAGES], empty[WG_STAGES];
+    __shared__ uint8_t s_bad[WG_BM];
+
+    const int b = blockIdx.z, row0 = blockIdx.y * WG_BM, col0 = blockIdx.x * WG_BN;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int src = table[b];
+    mark_bad_rows<WG_BM>(s_bad, idx, w, row_bad, b, d_max, R, bm, row0);
+    if (tid == 0) {
+        for (int s = 0; s < WG_STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], WG_CONSUMERS);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    const int n_kt = (kp + WG_BK - 1) / WG_BK;
+
+    if (warp == 4 * WG_CONSUMERS) {  // the producer warp
+        if (lane == 0) {
+            const CUtensorMap* amap = src >= 0 ? &maps.a : &maps.enc;
+            const int arow = (src >= 0 ? src : b) * bm + row0;
+            for (int kt = 0; kt < n_kt; ++kt) {
+                const int s = kt % WG_STAGES;
+                if (kt >= WG_STAGES) mbar_wait(&empty[s], ((kt / WG_STAGES) + 1) & 1);
+                uint8_t* st = smem + (size_t)s * WG_STAGE_BYTES;
+                mbar_expect_tx(&full[s], WG_STAGE_BYTES);
+                tma_load(st, amap, kt * WG_BK, arow, &full[s]);
+                tma_load(st + WG_TILE_BYTES, &maps.xt_big, kt * WG_BK, col0, &full[s]);
+                tma_load(st + 2 * WG_TILE_BYTES, &maps.xt_small, kt * WG_BK, col0, &full[s]);
+            }
+        }
+        return;
+    }
+
+    // Consumer: warpgroup cw owns rows cw*64 .. +63; warp wq of it rows
+    // wq*16 .. +15; lane (g, t).
+    const int cw = warp >> 2, wq = warp & 3, g = lane >> 2, t = lane & 3;
+    const int r_lo = cw * 64 + wq * 16 + g;  // and r_lo + 8
+    float acc[64], tile[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = tile[i] = 0.f;
+    for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % WG_STAGES;
+        mbar_wait(&full[s], (kt / WG_STAGES) & 1);
+        const uint8_t* st = smem + (size_t)s * WG_STAGE_BYTES;
+        const float* tA = reinterpret_cast<const float*>(st);
+        // The stage's A fragments (rows r_lo, r_lo + 8; columns kk + t and
+        // kk + t + 4 of each k8 step) from the 128-byte swizzle: 16-byte
+        // chunk c of row r sits at chunk c ^ (r % 8), and r % 8 == g.  All
+        // are split before the first wgmma: the registers must stay as they
+        // are until the wgmma that read them complete.
+        uint32_t big[WG_BK / 8][4], small[WG_BK / 8][4];
+#pragma unroll
+        for (int q = 0; q < WG_BK / 8; ++q) {
+            const int c_lo = ((2 * q) ^ g) * 4 + t, c_hi = ((2 * q + 1) ^ g) * 4 + t;
+            split_tf32(tA[r_lo * 32 + c_lo], big[q][0], small[q][0]);
+            split_tf32(tA[(r_lo + 8) * 32 + c_lo], big[q][1], small[q][1]);
+            split_tf32(tA[r_lo * 32 + c_hi], big[q][2], small[q][2]);
+            split_tf32(tA[(r_lo + 8) * 32 + c_hi], big[q][3], small[q][3]);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int q = 0; q < WG_BK / 8; ++q) {  // the small terms first
+            const uint64_t xb = wgmma_desc(st + WG_TILE_BYTES, q * 32);
+            const uint64_t xs = wgmma_desc(st + 2 * WG_TILE_BYTES, q * 32);
+            wgmma_tf32_m64n128k8(tile, small[q], xb, q > 0);
+            wgmma_tf32_m64n128k8(tile, big[q], xs, 1);
+            wgmma_tf32_m64n128k8(tile, big[q], xb, 1);
+        }
+        wgmma_commit();
+        wgmma_wait0();
+#pragma unroll
+        for (int q = 0; q < WG_BK / 8; ++q)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) keep_live(big[q][i], small[q][i]);
+        if (lane == 0 && wq == 0) mbar_arrive(&empty[s]);  // the warpgroup is done with it
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] += tile[i];
+    }
+
+    // acc[4j + e]: row r_lo + 8 (e / 2), column 8j + 2t + e % 2.
+    const float qnan = __int_as_float(0x7fc00000);
+    const bool pairs = n % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
+    const float* abase = src >= 0 ? a + (size_t)src * bm * k : enc + (size_t)b * bm * kp;
+    const int astride = src >= 0 ? k : kp;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = r_lo + 8 * h, row = row0 + r;
+        if (row >= bm) continue;
+        const bool bad = s_bad[r];
+        const float* a_row = abase + (size_t)row * astride;
+        float* out_row = out + ((size_t)b * bm + row) * n;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+            const int col = col0 + 8 * j + 2 * t;
+            float v[2] = {acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]};
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                if (bad) v[e] = qnan;
+                else if (!isfinite(v[e]) && col + e < n)
+                    v[e] = plain_dot(a_row, x, k, n, col + e);
+            }
+            if (pairs && col < n) {
+                *reinterpret_cast<float2*>(out_row + col) = make_float2(v[0], v[1]);
+            } else {
+                if (col < n) out_row[col] = v[0];
+                if (col + 1 < n) out_row[col + 1] = v[1];
+            }
+        }
+    }
+}
+
+// ---- bfloat16: the CUDA-core kernel ------------------------------------------
+
 constexpr int BM = 128;       // rows of a coded block per CTA
 constexpr int BN = 128;       // output columns per CTA
 constexpr int BK = 8;         // reduction depth per tile
-constexpr int THREADS = 256;
 constexpr int A_LD = BM + 4;  // padded row of the k-major encoded tile: conflict-free stores
-constexpr int STAGE_D = 16;   // neighbour tiles staged per k tile (float32 kernel)
-constexpr int RAW_TILE = BM * BK;  // floats in one staged neighbour tile
-
-// 4-byte asynchronous copy global -> shared; zero-fills when !pred (the
-// source is then not read).
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
-    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(dst), "l"(gmem), "r"(pred ? 4 : 0));
-}
-// 16-byte asynchronous copy of `bytes` (0..16) bytes, zero-filling the
-// rest; both addresses 16-byte aligned.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int bytes) {
-    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(dst), "l"(gmem), "r"(bytes));
-}
-__device__ __forceinline__ int clamp_bytes(int elems) {  // 4-byte elements left, as 0..16 bytes
-    return elems <= 0 ? 0 : (elems >= 4 ? 16 : 4 * elems);
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // Thread roles.  Loader: A row tid/2, k columns (tid%2)*4..+3; X row
 // tid/32, columns (tid%32)*4..+3.  Product: rows ty*4+i and 64+ty*4+i,
@@ -132,19 +477,6 @@ __device__ __forceinline__ void product_tile(float (&acc)[8][8], float (*As)[A_L
     }
 }
 
-// s_bad[r] for the CTA's rows: a padding slot of block b reaches a marked
-// (non-finite) source row.  Read only after a later __syncthreads.
-__device__ __forceinline__ void mark_bad_rows(uint8_t* s_bad, const int32_t* __restrict__ idx,
-                                              const float* __restrict__ w,
-                                              const uint8_t* __restrict__ row_bad, int b,
-                                              int d_max, int R, int bm, int row0) {
-    const int row = row0 + threadIdx.x;
-    if (threadIdx.x < BM)
-        s_bad[threadIdx.x] = row < bm && nonfinite::padding_reaches_nonfinite(
-                                             idx + (size_t)b * d_max, w + (size_t)b * d_max,
-                                             d_max, R, bm, row, row_bad);
-}
-
 // Write the 8x8 outputs once, in the output type; rows marked in s_bad are
 // NaN, as 0 * inf in an encoded element makes the plain version's row.
 template <typename T>
@@ -164,110 +496,6 @@ __device__ __forceinline__ void write_out(T* __restrict__ out, const float (&acc
             if (col < n) out_row[col] = from_f32<T>(bad ? __int_as_float(0x7fc00000) : acc[i][j]);
         }
     }
-}
-
-// float32: neighbour and X tiles staged by cp.async.  Dynamic shared
-// memory: `stage` raw neighbour tiles, then d_max ids and d_max weights.
-__global__ void __launch_bounds__(THREADS, 2)
-coded_matmul_f32_kernel(const float* __restrict__ a, const float* __restrict__ x,
-                        const int32_t* __restrict__ idx, const float* __restrict__ w,
-                        const uint8_t* __restrict__ row_bad, float* __restrict__ out, int R,
-                        int bm, int k, int n, int d_max, int stage, int vec) {
-    __shared__ __align__(16) float As[2][BK][A_LD];
-    __shared__ __align__(16) float Xs[2][BK][BN];
-    __shared__ int s_nnz;
-    __shared__ uint8_t s_bad[BM];
-    extern __shared__ __align__(16) float dyn_f32[];
-    float* raw = dyn_f32;  // [stage][BM][BK]
-    int* s_src = reinterpret_cast<int*>(raw + (size_t)stage * RAW_TILE);
-    float* s_w = reinterpret_cast<float*>(s_src + d_max);
-
-    const int b = blockIdx.z, row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-    const Roles ro(threadIdx.x);
-    const int nnz = tiles::compact_neighbours(idx + (size_t)b * d_max, w + (size_t)b * d_max,
-                                              d_max, R, s_src, s_w, &s_nnz);
-    mark_bad_rows(s_bad, idx, w, row_bad, b, d_max, R, bm, row0);
-    const int staged = min(nnz, stage);
-    const int a_grow = row0 + ro.a_row;
-
-    auto issue = [&](int k0, int buf) {  // cp.async the tile at k0
-        const int kr = k0 + ro.x_row;
-        if (vec) {  // k, n multiples of 4 and a, x 16-byte aligned: one copy per row piece
-            const int a_bytes = a_grow < bm ? clamp_bytes(k - k0 - ro.a_col) : 0;
-            for (int j = 0; j < staged; ++j) {
-                const float* src = a + ((size_t)s_src[j] * bm + a_grow) * k + k0 + ro.a_col;
-                cp_async16(raw + j * RAW_TILE + ro.a_row * BK + ro.a_col, a_bytes ? src : a,
-                           a_bytes);
-            }
-            const int c = col0 + ro.x_col;
-            const int x_bytes = kr < k ? clamp_bytes(n - c) : 0;
-            cp_async16(&Xs[buf][ro.x_row][ro.x_col], x_bytes ? x + (size_t)kr * n + c : x,
-                       x_bytes);
-        } else {
-            for (int j = 0; j < staged; ++j) {
-                const float* src = a + ((size_t)s_src[j] * bm + a_grow) * k + k0 + ro.a_col;
-                float* dst = raw + j * RAW_TILE + ro.a_row * BK + ro.a_col;
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    const bool ok = a_grow < bm && k0 + ro.a_col + i < k;
-                    cp_async4(dst + i, ok ? src + i : a, ok);
-                }
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const int c = col0 + ro.x_col + i;
-                const bool ok = kr < k && c < n;
-                cp_async4(&Xs[buf][ro.x_row][ro.x_col + i], ok ? x + (size_t)kr * n + c : x, ok);
-            }
-        }
-        cp_async_commit();
-    };
-    auto encode = [&](int k0, int buf) {  // after the copies landed
-        float s[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int j = 0; j < staged; ++j) {
-            const float4 v =
-                *reinterpret_cast<const float4*>(raw + j * RAW_TILE + ro.a_row * BK + ro.a_col);
-            const float wj = s_w[j];
-            s[0] += wj * v.x;
-            s[1] += wj * v.y;
-            s[2] += wj * v.z;
-            s[3] += wj * v.w;
-        }
-        for (int j = staged; j < nnz; ++j) {  // beyond the stage: straight from memory
-            float v[4];
-            load_a4(v, a, s_src[j], bm, k, a_grow, k0 + ro.a_col);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) s[i] += s_w[j] * v[i];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) As[buf][ro.a_col + i][ro.a_row] = s[i];
-    };
-
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    issue(0, 0);
-    cp_async_wait_all();
-    __syncthreads();
-    encode(0, 0);
-    __syncthreads();
-    int buf = 0;
-    for (int k0 = 0; k0 < k; k0 += BK) {
-        const bool more = k0 + BK < k;
-        if (more) issue(k0 + BK, buf ^ 1);
-        product_tile(acc, As[buf], Xs[buf], ro);
-        if (more) {
-            cp_async_wait_all();
-            __syncthreads();  // the staged tiles are visible to every thread
-            encode(k0 + BK, buf ^ 1);
-        }
-        __syncthreads();
-        buf ^= 1;
-    }
-    write_out(out, acc, ro, s_bad, b, row0, col0, bm, n);
 }
 
 // bfloat16 (and any other input type): the next tile's X and first
@@ -292,7 +520,7 @@ coded_matmul_regs_kernel(const T* __restrict__ a, const T* __restrict__ x,
     const Roles ro(threadIdx.x);
     const int nnz = tiles::compact_neighbours(idx + (size_t)b * d_max, w + (size_t)b * d_max,
                                               d_max, R, s_src, s_w, &s_nnz);
-    mark_bad_rows(s_bad, idx, w, row_bad, b, d_max, R, bm, row0);
+    mark_bad_rows<BM>(s_bad, idx, w, row_bad, b, d_max, R, bm, row0);
     const int a_grow = row0 + ro.a_row;
 
     float a_first[4], x_next[4];
@@ -354,18 +582,57 @@ coded_matmul_regs_kernel(const T* __restrict__ a, const T* __restrict__ x,
     write_out(out, acc, ro, s_bad, b, row0, col0, bm, n);
 }
 
+// cuTensorMapEncodeTiled, found through the runtime (no -lcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+    static EncodeTiledFn fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+                cudaSuccess &&
+            found == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+    return fn;
+}
+
+// A TMA map of a row-major float32 matrix (rows, cols; row stride
+// row_floats, a multiple of 4), read in 128-row x 32-column boxes in the
+// 128-byte swizzle; reads past the edges give zeros.
+bool tile_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+              uint64_t row_floats) {
+    EncodeTiledFn fn = encode_tiled();
+    if (fn == nullptr) return false;
+    const cuuint64_t dims[2] = {cols, rows};
+    const cuuint64_t strides[1] = {row_floats * sizeof(float)};
+    const cuuint32_t box[2] = {WG_BK, WG_BM};
+    const cuuint32_t steps[2] = {1, 1};
+    return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides,
+              box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+           CUDA_SUCCESS;
+}
+
 }  // namespace
 
 extern "C" {
 
 // out (C*bm, n) = coded products of a (R*bm, k) and x (k, n), both of one
 // type (dtype 0: float32, 1: bfloat16); idx (C, d_max) int32, w (C, d_max)
-// float32; scratch R + R*bm bytes for the non-finite row marks.  Launches the
-// marks and the product on `stream` and returns the first CUDA error.
+// float32; scratch R + R*bm bytes for the non-finite row marks.  float32
+// also takes enc, C*bm*kp floats for the encoded blocks (kp = k rounded up
+// to a multiple of 4, at least 4), table, C int32, and xt, 2*n*kp floats
+// for the split X^T (all written here; unused for bfloat16).  Launches the
+// marks, the prologue and the product on `stream` and returns the first
+// CUDA error.
 int coded_matmul_launch(const void* a, const void* x, const void* idx, const void* w,
-                        void* out, void* scratch, int R, int bm, int k, int n, int C, int d_max,
-                        int dtype, void* stream) {
-    const dim3 grid((n + BN - 1) / BN, (bm + BM - 1) / BM, C);
+                        void* out, void* scratch, void* enc, void* table, void* xt, int R,
+                        int bm, int k, int n, int C, int d_max, int dtype, void* stream) {
     const size_t nbr_bytes = 2 * sizeof(int) * (size_t)d_max;  // compacted neighbours
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     uint8_t* marks = static_cast<uint8_t*>(scratch);
@@ -376,25 +643,52 @@ int coded_matmul_launch(const void* a, const void* x, const void* idx, const voi
         cudaError_t err = nonfinite::launch_marks(static_cast<const __nv_bfloat16*>(a), R, bm, k,
                                                   idx32, wf, C * d_max, marks, s);
         if (err != cudaSuccess) return static_cast<int>(err);
+        const dim3 grid((n + BN - 1) / BN, (bm + BM - 1) / BM, C);
         coded_matmul_regs_kernel<__nv_bfloat16><<<grid, THREADS, nbr_bytes, s>>>(
             static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(x), idx32,
             wf, row_bad, static_cast<__nv_bfloat16*>(out), R, bm, k, n, d_max);
-    } else {
-        cudaError_t err = nonfinite::launch_marks(static_cast<const float*>(a), R, bm, k, idx32,
-                                                  wf, C * d_max, marks, s);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        const int stage = d_max < STAGE_D ? d_max : STAGE_D;
-        const int vec = k % 4 == 0 && n % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-                        reinterpret_cast<uintptr_t>(x) % 16 == 0;
-        const size_t smem = sizeof(float) * (size_t)stage * RAW_TILE + nbr_bytes;
-        err = cudaFuncSetAttribute(coded_matmul_f32_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-        coded_matmul_f32_kernel<<<grid, THREADS, smem, s>>>(
-            static_cast<const float*>(a), static_cast<const float*>(x), idx32, wf, row_bad,
-            static_cast<float*>(out), R, bm, k, n, d_max, stage, vec);
+        return static_cast<int>(cudaGetLastError());
     }
+    const float* af = static_cast<const float*>(a);
+    const float* xf = static_cast<const float*>(x);
+    float* encf = static_cast<float*>(enc);
+    float* xt_big = static_cast<float*>(xt);
+    const int kp = k < 4 ? 4 : (k + 3) / 4 * 4;
+    float* xt_small = xt_big + (size_t)n * kp;
+    int32_t* tab = static_cast<int32_t*>(table);
+    // Blocks are read straight from A only where TMA can read A's rows.
+    const bool a_rows = k % 4 == 0 && k > 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+
+    cudaError_t err = nonfinite::launch_marks(af, R, bm, k, idx32, wf, C * d_max, marks, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 enc_grid(C, (bm + ENC_ROWS - 1) / ENC_ROWS, (kp + ENC_COLS - 1) / ENC_COLS);
+    if (a_rows)
+        coded_matmul_encode_kernel<true><<<enc_grid, THREADS, nbr_bytes, s>>>(
+            af, idx32, wf, encf, tab, R, bm, k, kp, d_max, 0);
+    else
+        coded_matmul_encode_kernel<false><<<enc_grid, THREADS, nbr_bytes, s>>>(
+            af, idx32, wf, encf, tab, R, bm, k, kp, d_max, 1);
+    coded_matmul_split_xt_kernel<<<dim3((n + 31) / 32, (kp + 31) / 32), 256, 0, s>>>(
+        xf, xt_big, xt_small, k, n, kp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+
+    WgMaps maps;
+    if (!tile_map(&maps.enc, encf, (uint64_t)C * bm, kp, kp) ||
+        !tile_map(&maps.a, a_rows ? static_cast<const void*>(af) : encf,
+                  a_rows ? (uint64_t)R * bm : (uint64_t)C * bm, a_rows ? k : kp,
+                  a_rows ? k : kp) ||
+        !tile_map(&maps.xt_big, xt_big, n, kp, kp) ||
+        !tile_map(&maps.xt_small, xt_small, n, kp, kp))
+        return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaFuncSetAttribute(coded_matmul_wgmma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(WG_SMEM));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((n + WG_BN - 1) / WG_BN, (bm + WG_BM - 1) / WG_BM, C);
+    coded_matmul_wgmma_kernel<<<grid, WG_THREADS, WG_SMEM, s>>>(
+        maps, af, xf, encf, tab, idx32, wf, row_bad, static_cast<float*>(out), R, bm, k, n, kp,
+        d_max);
     return static_cast<int>(cudaGetLastError());
 }
 

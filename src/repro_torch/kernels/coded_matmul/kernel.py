@@ -3,12 +3,16 @@
 The kernel is ``csrc/coded_matmul.cu`` (see its header for the design and
 what bounds it); it replaces the Pallas TPU kernel
 ``repro.kernels.coded_matmul.kernel.coded_matmul_pallas``.  This wrapper
-checks what the kernel takes, allocates the output, launches on PyTorch's
-current stream without synchronising, and counts its launches in
-``coded_matmul_cuda.launches``.  One launch is the non-finite row marks
-(``csrc/nonfinite_rows.cuh``) followed by the product, on one stream.  It
-takes CUDA tensors only; the plain version for the CPU is
-``ref.coded_matmul_ref``.
+checks what the kernel takes, allocates the output and the scratch,
+launches on PyTorch's current stream without synchronising, and counts its
+launches in ``coded_matmul_cuda.launches``.  One launch is the non-finite
+row marks (``csrc/nonfinite_rows.cuh``), then for float32 the prologue
+(every block that is not a plain copy of a source block encoded once into
+a scratch buffer of C blocks, the row table the product reads, and the
+TF32 split of X^T) and the 3xTF32 wgmma product; bfloat16 runs its
+CUDA-core kernel after the marks.  It takes CUDA tensors only; the plain
+version for the CPU is ``ref.coded_matmul_ref`` (``ref.coded_matmul_two_phase``
+models the float32 design step by step).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ SOURCE = "coded_matmul.cu"
 
 
 def _lib():
-    return _nvcc.bind(SOURCE, "coded_matmul", 6, 7)
+    return _nvcc.bind(SOURCE, "coded_matmul", 9, 7)
 
 
 def coded_matmul_cuda(
@@ -52,16 +56,23 @@ def coded_matmul_cuda(
     if bm <= 0 or a.shape[0] % bm:
         raise ValueError(f"a rows {a.shape[0]} not divisible by bm={bm}")
     (C, d_max), (k, n), R = idx.shape, x.shape, a.shape[0] // bm
-    if max(C, R) > _nvcc.MAX_GRID_YZ or d_max > _nvcc.MAX_D:
+    if max(C, R, -(-bm // 4)) > _nvcc.MAX_GRID_YZ or d_max > _nvcc.MAX_D:
         raise ValueError(f"C={C} coded blocks of d_max={d_max} neighbours over R={R} source "
-                         f"blocks exceed the kernel's limits ({_nvcc.MAX_GRID_YZ}, {_nvcc.MAX_D})")
+                         f"blocks of bm={bm} rows exceed the kernel's limits ({_nvcc.MAX_GRID_YZ}, {_nvcc.MAX_D})")
     out = torch.empty((C * bm, n), dtype=x.dtype, device=a.device)
     if out.numel() == 0:
         return out
     scratch = torch.empty((R + R * bm,), dtype=torch.uint8, device=a.device)  # row marks
+    ptrs = [None, None, None]  # float32: the prologue's encoded blocks, row table, split X^T
+    if a.dtype == torch.float32:
+        kp = max(4, -(-k // 4) * 4)  # TMA rows: a multiple of 16 bytes
+        ptrs = [torch.empty((C * bm, kp), dtype=torch.float32, device=a.device),
+                torch.empty((C,), dtype=torch.int32, device=a.device),
+                torch.empty((2, n, kp), dtype=torch.float32, device=a.device)]
     _nvcc.launch(_lib(), "coded_matmul", a.device, a.data_ptr(), x.data_ptr(), idx.data_ptr(),
-                 weights.data_ptr(), out.data_ptr(), scratch.data_ptr(), R, bm, k, n, C, d_max,
-                 _nvcc.DTYPE_CODE[a.dtype])
+                 weights.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                 *(t.data_ptr() if t is not None else None for t in ptrs), R, bm, k, n, C,
+                 d_max, _nvcc.DTYPE_CODE[a.dtype])
     coded_matmul_cuda.launches += 1
     return out
 

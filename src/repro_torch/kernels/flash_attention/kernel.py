@@ -10,11 +10,23 @@ arguments: a decode loop calls it with a new offset each step and nothing
 is recompiled.  q, k and v may be strided views (the einsum outputs of the
 attention block) as long as their last dimension is contiguous.  It takes
 CUDA tensors only; the plain versions for the CPU are in ``ref.py``.
+
+Where the grid would not fill the card's SMs (a decode step), the keys are
+split over more CTAs (:func:`split_plan`), each leaving a partial softmax
+that the tile's last CTA combines in the same launch
+(``ref.attention_split`` is the plain model).  The partials and the
+combine's tickets live in one scratch pair per device, allocated (the
+tickets zeroed) when a launch first needs them or needs more, and reused:
+every launch leaves the tickets zero, so a call adds no launch and no
+allocation of its own.  Launches that share a device's scratch must not
+run at the same time on two streams.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -23,10 +35,67 @@ from .. import _nvcc
 SOURCE = "flash_attention.cu"
 MAX_HEAD_DIM = 256
 _INT_MAX = 2**31 - 1
+KEY_TILE = 64       # BK of csrc/flash_attention.cu
+SPLIT_KEYS = 128    # keys a chunk when the keys are split (two tiles)
+MAX_SPLIT = 64      # chunks a query tile at most: longer buffers take longer chunks
+
+_scratch: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+class SplitPlan(NamedTuple):
+    bq: int       # query rows a CTA
+    dmax: int     # head dim the instance is compiled for
+    tiles: int    # query tiles a (b, KV head)
+    n_split: int  # key chunks a query tile (1: no split)
+    chunk: int    # keys a chunk
+
+    def ctas(self, B: int, Hkv: int) -> int:
+        return self.tiles * self.n_split * Hkv * B
+
+    def working_ctas(self, B: int, Hkv: int, tk_valid: int) -> int:
+        """CTAs whose chunk starts below ``tk_valid`` (the others leave an
+        empty partial at once)."""
+        live = min(self.n_split, math.ceil(tk_valid / self.chunk)) if self.n_split > 1 else 1
+        return self.tiles * live * Hkv * B
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(B: int, Hq: int, Hkv: int, Tq: int, Tk: int, D: int, sms: int) -> SplitPlan:
+    """The launch's tile (as ``dispatch`` in csrc/flash_attention.cu picks
+    it) and key split: where the unsplit grid (tiles, Hkv, B) has fewer CTAs
+    than the card's ``sms``, the Tk keys of the buffer (never ``tk_valid``,
+    so the grid is the same at every decode step) go in chunks of
+    ``SPLIT_KEYS``, longer if that would make more than ``MAX_SPLIT``."""
+    rows = Hq // Hkv * Tq
+    dmax = 64 if D <= 64 else 128 if D <= 128 else 256
+    bq = 8 if rows <= 8 else 64 if D <= 128 else 32
+    tiles = -(-rows // bq)
+    if tiles * Hkv * B >= sms or Tk <= SPLIT_KEYS:
+        return SplitPlan(bq, dmax, tiles, 1, max(Tk, 1))
+    chunk = max(SPLIT_KEYS, KEY_TILE * -(-Tk // (MAX_SPLIT * KEY_TILE)))
+    return SplitPlan(bq, dmax, tiles, -(-Tk // chunk), chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _split_scratch(device: torch.device, n_part: int,
+                   n_tickets: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The device's split scratch: at least ``n_part`` floats of partials
+    and ``n_tickets`` combine tickets, which are zero between launches."""
+    part, ticket = _scratch.get(device, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty((n_part,), dtype=torch.float32, device=device)
+    if ticket is None or ticket.numel() < n_tickets:
+        ticket = torch.zeros((max(n_tickets, 1024),), dtype=torch.int32, device=device)
+    _scratch[device] = (part, ticket)
+    return part, ticket
 
 
 def _lib():
-    return _nvcc.bind(SOURCE, "flash_attention", 4, 21, 2)
+    return _nvcc.bind(SOURCE, "flash_attention", 6, 23, 2)
 
 
 def flash_attention_cuda(
@@ -82,10 +151,18 @@ def flash_attention_cuda(
     align = 4 * q.element_size()
     vec = D % 4 == 0 and all(s_ % 4 == 0 for s_ in strides) and all(
         t.data_ptr() % align == 0 for t in (q, k, v))
+    plan = split_plan(B, Hq, Hkv, Tq, Tk, D, _sm_count(q.device))
+    part = ticket = None
+    if plan.n_split > 1:
+        n_tiles = plan.tiles * Hkv * B
+        part, ticket = _split_scratch(
+            q.device, n_tiles * plan.n_split * plan.bq * (2 + plan.dmax), n_tiles)
     _nvcc.launch(_lib(), "flash_attention", q.device, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), B, Hq, Hkv, Tq, Tk, D, *strides,
-                 int(q_offset), tk_valid, int(bool(causal)), int(window or 0), int(vec),
-                 _nvcc.DTYPE_CODE[q.dtype], 1.0 / (D ** 0.5),  # the TPU kernel's scale
+                 v.data_ptr(), out.data_ptr(), part.data_ptr() if part is not None else None,
+                 ticket.data_ptr() if ticket is not None else None, B, Hq, Hkv, Tq, Tk, D,
+                 *strides, int(q_offset), tk_valid, int(bool(causal)), int(window or 0),
+                 int(vec), plan.n_split, plan.chunk, _nvcc.DTYPE_CODE[q.dtype],
+                 1.0 / (D ** 0.5),  # the TPU kernel's scale
                  float(softcap or 0.0))
     flash_attention_cuda.launches += 1
     return out

@@ -122,3 +122,73 @@ def attention_chunked(
         m = m_new
     out = torch.where(l[..., None] > 0, acc / l[..., None], 0.0)
     return out.to(q.dtype)
+
+
+def attention_split_partials(
+    q: torch.Tensor,  # (B, Hq, Tq, D)
+    k: torch.Tensor,  # (B, Hkv, Tk, D)
+    v: torch.Tensor,  # (B, Hkv, Tk, D)
+    *,
+    chunk: int,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    q_offset: int = 0,
+    kv_len: Optional[int] = None,
+) -> tuple:
+    """The split-K kernel's first phase in plain torch: for each chunk s of
+    ``chunk`` keys of the buffer (ceil(Tk / chunk) chunks, whatever
+    ``kv_len`` is), the row max m_s, the row sum l_s and the unnormalised
+    output o_s over the chunk's visible keys.  A chunk with no visible key
+    for a row gives m = NEG_INF, l = 0 and o = 0 there.  Returns (m, l, o),
+    shaped (S, B, Hq, Tq), (S, B, Hq, Tq) and (S, B, Hq, Tq, D), in fp32."""
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    valid = Tk if kv_len is None else int(kv_len)
+    qf = q.float()
+    q_pos = q_offset + torch.arange(Tq, device=q.device)[:, None]
+    ms, ls, os_ = [], [], []
+    for c0 in range(0, Tk, chunk):
+        c1 = min(c0 + chunk, Tk)
+        kj = k[:, :, c0:c1].float().repeat_interleave(group, dim=1)
+        vj = v[:, :, c0:c1].float().repeat_interleave(group, dim=1)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kj) / torch.sqrt(
+            torch.tensor(D, dtype=torch.float32))
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        k_pos = torch.arange(c0, c1, device=q.device)[None, :]
+        mask = (k_pos < valid).expand(Tq, -1)
+        if causal:
+            mask = mask & (k_pos <= q_pos)
+        if window is not None:
+            mask = mask & ((q_pos - k_pos) < window)
+        s = torch.where(mask, s, NEG_INF)
+        m = s.amax(dim=-1)
+        p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        # masked keys weigh exactly 0, and what lies in their slots (a stale
+        # NaN) is never multiplied
+        os_.append(torch.einsum("bhqk,bhkd->bhqd", p, torch.where(
+            mask.any(dim=0)[None, None, :, None], vj, 0.0)))
+    return torch.stack(ms), torch.stack(ls), torch.stack(os_)
+
+
+def combine_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """The split-K kernel's combine: with M = max_s m_s, out = sum_s
+    e^(m_s - M) o_s / sum_s e^(m_s - M) l_s, skipping empty partials (l_s =
+    0), and 0 for a row that no chunk saw a key of."""
+    M = m.amax(dim=0)
+    c = torch.where(l > 0, torch.exp(m - M), 0.0)
+    L = (c * l).sum(dim=0)
+    O = (c[..., None] * torch.where(l[..., None] > 0, o, 0.0)).sum(dim=0)
+    return torch.where(L[..., None] > 0, O / torch.where(L > 0, L, 1.0)[..., None], 0.0)
+
+
+def attention_split(q, k, v, *, chunk: int, **kw) -> torch.Tensor:
+    """Attention by split-K: :func:`attention_split_partials` over chunks of
+    ``chunk`` keys, then :func:`combine_partials`.  The semantics of
+    :func:`attention_ref` with an int ``kv_len``; the plain model of the
+    CUDA kernel's split decode."""
+    return combine_partials(*attention_split_partials(q, k, v, chunk=chunk, **kw)).to(q.dtype)

@@ -308,3 +308,94 @@ def test_flash_attention_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="use_kernel=False"):
         flash_attention(q, kv, kv, use_kernel=False)
     assert flash_attention_cuda(q[:, :, :0], kv, kv).shape == (1, 4, 0, 8)
+
+
+# --- K1's tensor-core design and K4's split-K decode -----------------------------
+
+from repro_torch.kernels.coded_matmul.ref import coded_matmul_two_phase  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import split_plan  # noqa: E402
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,K,bm,ndim,degree", [(4, 2, 64, 384, None), (32, 8, 32, 200, 16)])
+def test_cuda_kernel_at_k4096_matches_plain_version(card, R, K, bm, ndim, degree):
+    """The 3xTF32 product at the main path's depth (k = 4096) keeps the fp32
+    tolerance against the plain version and against its plain model."""
+    code = fountain.make_lt_code(R=R, K=K, seed=R * 31 + K, parity_degree=degree)
+    rng = np.random.default_rng(R + bm)
+    a = torch.as_tensor(rng.standard_normal((R * bm, 4096)), dtype=torch.float32, device=card)
+    x = torch.as_tensor(rng.standard_normal((4096, ndim)), dtype=torch.float32, device=card)
+    idx, w = torch.as_tensor(code.idx, device=card), torch.as_tensor(code.weights, device=card)
+    out = coded_matmul(a, x, idx, w, bm=bm)
+    ref = coded_matmul_ref(a, x, idx, w, bm)
+    model = coded_matmul_two_phase(a, x, idx, w, bm)
+    torch.cuda.synchronize()
+    tol = TOL[torch.float32] * (1.0 + float(ref.abs().max()))
+    assert float((out - ref).abs().max()) <= tol
+    assert float((out - model).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["inf-direct", "inf-x", "nan-x", "pm1-systematic"])
+def test_cuda_kernel_non_finite_and_signed_blocks_match_plain_version(card, case):
+    """Outputs that meet an inf or a NaN come out of the tensor cores
+    non-finite and are recomputed as plain fp32 dot products: inf for inf
+    and NaN for NaN as in the plain version.  A systematic block of weight
+    -1 goes through the prologue's encode."""
+    R, K, bm, kdim, ndim = 6, 4, 8, 40, 24
+    code = fountain.make_lt_code(R=R, K=K, seed=3)
+    w = np.array(code.weights, copy=True)
+    if case == "pm1-systematic":
+        w[1, np.nonzero(w[1])[0][0]] = -1.0
+    rng = np.random.default_rng(5)
+    a = torch.as_tensor(rng.standard_normal((R * bm, kdim)), dtype=torch.float32, device=card)
+    x = torch.as_tensor(rng.standard_normal((kdim, ndim)), dtype=torch.float32, device=card)
+    if case == "inf-direct":
+        a[bm + 2, 7] = torch.inf
+    if case == "inf-x":
+        x[3, 5] = -torch.inf
+    if case == "nan-x":
+        x[11, 2] = torch.nan
+    idx, wt = torch.as_tensor(code.idx, device=card), torch.as_tensor(w, device=card)
+    out, ref = coded_matmul(a, x, idx, wt, bm=bm), coded_matmul_ref(a, x, idx, wt, bm)
+    torch.cuda.synchronize()
+    assert case == "pm1-systematic" or not bool(torch.isfinite(ref).all())
+    fin = torch.isfinite(ref)
+    tol = TOL[torch.float32] * (1.0 + float(ref[fin].abs().max()))
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol, equal_nan=True)
+
+
+SPLIT_CASES = [  # (B, Hq, Hkv, Tq, Tk, D, q_offset, tk_valid, window, softcap)
+    (4, 24, 8, 1, 2048, 128, 1040, 1041, None, None),   # the serving decode step
+    (2, 6, 2, 1, 1024, 64, 49, 50, None, None),         # tk_valid in the first chunk
+    (2, 6, 2, 1, 1024, 64, 255, 256, None, None),       # on a chunk edge
+    (2, 6, 2, 1, 1024, 64, 1023, 1024, None, None),     # the whole buffer
+    (2, 6, 2, 1, 1024, 64, 899, 900, 100, None),        # a window that empties chunks
+    (2, 6, 2, 1, 1024, 64, 599, 600, None, 30.0),       # softcap
+    (1, 6, 2, 5, 1024, 64, 700, 705, None, None),       # a short query block (wide tile)
+    (1, 8, 2, 1, 700, 256, 650, 651, None, None),       # head dim 256 (one-stage tile)
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,q_offset,tk_valid,window,softcap", SPLIT_CASES)
+def test_flash_attention_split_matches_plain_version(card, B, Hq, Hkv, Tq, Tk, D, q_offset,
+                                                     tk_valid, window, softcap, dtype):
+    """K4 with its keys split over more CTAs than the card has SMs (the
+    split is asserted from the card's SM count), NaN in every slot beyond
+    tk_valid, three launches in a row (the tickets go back to 0)."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert split_plan(B, Hq, Hkv, Tq, Tk, D, sms).n_split > 1
+    rng = np.random.default_rng(Tk + tk_valid + D)
+    q = torch.as_tensor(rng.standard_normal((B, Hq, Tq, D)) * 0.5, dtype=dtype, device=card)
+    k = torch.as_tensor(rng.standard_normal((B, Hkv, Tk, D)) * 0.5, dtype=dtype, device=card)
+    v = torch.as_tensor(rng.standard_normal((B, Hkv, Tk, D)), dtype=dtype, device=card)
+    k[:, :, tk_valid:], v[:, :, tk_valid:] = torch.nan, torch.nan
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=q_offset)
+    outs = [flash_attention(q, k, v, tk_valid=tk_valid, **kw) for _ in range(3)]
+    ref = attention_ref(q, k[:, :, :tk_valid], v[:, :, :tk_valid], **kw)
+    torch.cuda.synchronize()
+    rtol, atol = FA_TOL[dtype]
+    torch.testing.assert_close(outs[0].float(), ref.float(), rtol=rtol, atol=atol)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])

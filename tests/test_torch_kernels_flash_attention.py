@@ -226,3 +226,72 @@ def test_cpu_dispatch_and_route_refusals():
         flash_attention_cuda(q, k, v)
     torch.testing.assert_close(flash_attention(q, k, v, use_kernel=False),
                                attention_ref(q, k, v), rtol=0, atol=0)
+
+
+# --- split-K decode: the launch plan and the plain model of the split ----------
+
+from repro_torch.kernels.flash_attention.kernel import split_plan  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (attention_split,  # noqa: E402
+                                                     attention_split_partials)
+
+H100_SMS = 132
+
+
+def test_split_plan_at_the_serving_shapes():
+    """phi4-mini's decode step (B 4, Hq 24, Hkv 8, a 2048-slot cache): 32
+    unsplit CTAs for 132 SMs, so 16 chunks of 128 keys, 9 of them holding
+    keys below tk_valid 1041: 288 working CTAs.  The plan reads the buffer's
+    length only, so every decode step gets the same grid.  The prefill
+    (1536 CTAs) is not split."""
+    plan = split_plan(4, 24, 8, 1, 2048, 128, H100_SMS)
+    assert (plan.bq, plan.n_split, plan.chunk) == (8, 16, 128)
+    assert plan.ctas(4, 8) == 512 and plan.working_ctas(4, 8, 1041) == 288 >= H100_SMS
+    assert all(split_plan(4, 24, 8, 1, 2048, 128, H100_SMS) == plan for _ in range(2))
+    prefill = split_plan(4, 24, 8, 1023, 2048, 128, H100_SMS)
+    assert prefill.n_split == 1 and prefill.ctas(4, 8) == 1536
+    long = split_plan(1, 8, 1, 1, 131072, 128, H100_SMS)  # chunks grow past 64 splits
+    assert long.n_split <= 64 and long.chunk % 64 == 0 and long.n_split * long.chunk >= 131072
+    assert split_plan(1, 2, 2, 32, 32, 16, H100_SMS).n_split == 1  # too few keys to split
+
+
+# (Tq, Tk, q_offset, tk_valid, window, softcap): tk_valid inside the first
+# chunk, on a chunk edge, equal to the buffer; a window that empties whole
+# chunks; softcap; a short query block (prefill into a cache).
+SPLIT_CASES = [
+    (1, 1024, 49, 50, None, None),
+    (1, 1024, 255, 256, None, None),
+    (1, 1024, 1023, 1024, None, None),
+    (1, 1024, 899, 900, 100, None),
+    (1, 1024, 599, 600, None, 30.0),
+    (5, 1024, 700, 705, None, None),
+]
+
+
+@pytest.mark.parametrize("Tq,Tk,q_offset,tk_valid,window,softcap", SPLIT_CASES)
+def test_split_attention_matches_reference(Tq, Tk, q_offset, tk_valid, window, softcap):
+    """Partials per 128-key chunk of the buffer, then the combine, equal
+    ``attention_ref`` and the JAX reference over the valid prefix, with NaN
+    in every stale slot beyond tk_valid (masked keys weigh exactly 0)."""
+    B, Hq, Hkv, D = 2, 6, 2, 16
+    q, k, v = _qkv(Tk + tk_valid, B, Hq, Hkv, Tq, Tk, D)
+    k[:, :, tk_valid:], v[:, :, tk_valid:] = np.nan, np.nan
+    (qj, kj, vj), (qt, kt, vt) = _both([q, k, v])
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=q_offset)
+    out = attention_split(qt, kt, vt, chunk=128, kv_len=tk_valid, **kw)
+    tol = TOL["float32"]
+    _close(out, attention_ref(qt, kt[:, :, :tk_valid], vt[:, :, :tk_valid], **kw), tol, tol * 8)
+    ref = ref_jax(qj, kj[:, :, :tk_valid], vj[:, :, :tk_valid], **kw)
+    _close(out, ref, tol, tol * 8)
+    m, l, _ = attention_split_partials(qt, kt, vt, chunk=128, kv_len=tk_valid, **kw)
+    assert m.shape[0] == Tk // 128
+    empty = torch.arange(Tk // 128) * 128 >= tk_valid  # chunks wholly beyond tk_valid
+    assert bool((l[empty] == 0).all()) and bool((m[empty] == -1e30).all())
+    if window is not None:  # chunks wholly before the window's horizon are empty too
+        before = (torch.arange(Tk // 128) + 1) * 128 <= q_offset - window + 1
+        assert bool(before.any()) and bool((l[before] == 0).all())
+
+
+def test_split_attention_gives_zero_where_no_key_is_valid():
+    q, k, v = (torch.as_tensor(a) for a in _qkv(9, 1, 4, 2, 1, 512, 8))
+    out = attention_split(q, k, v, chunk=128, causal=True, q_offset=0, kv_len=0)
+    assert torch.equal(out, torch.zeros_like(q))
