@@ -3,15 +3,16 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (and shows
-from its SASS that K1's float32 product runs on the tensor cores), holds each
-against its plain PyTorch version on the card, times it at the main path's
-shape beside its bound, drives the main paths through the port's entry
-points (one C3P task: the coded-matmul data plane and the CCP control plane;
-the rateless path: the LT payload round trip on K2 and K3 and the rateless
-CCP control plane with the decoder in the loop; LM serving: phi4-mini-3.8b at
-its full published size through ``ServeEngine.generate``, attention on K4,
-then CCP dispatch over two replicas and the card against the CPU),
-checks the results, and prints one line per phase.  The line before
+from its SASS that K1's float32 product and K4's float32 prefill run on the
+tensor cores), holds each against its plain PyTorch version on the card,
+times it at the main path's shape beside its bound, drives the main paths
+through the port's entry points (one C3P task: the coded-matmul data plane
+and the CCP control plane; the rateless path: the LT payload round trip on
+K2 and K3 and the rateless CCP control plane with the decoder in the loop;
+LM serving: phi4-mini-3.8b at its full published size through
+``ServeEngine.generate``, attention on K4, then CCP dispatch over two
+replicas and the card against the CPU), checks the results, and prints one
+line per phase.  The line before
 the last is a JSON object with every kernel's launches on the main path,
 error and times; the last line is ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; so does a machine without a CUDA card,
@@ -495,6 +496,12 @@ def rateless_data_plane(dev) -> dict:
             raise AssertionError(f"K2 at R{R}: max|err| {k2_err:.3e} > {k2_tol:.3e}")
         k2_ms = time_ms(lambda: lt_encode_cuda(a, idx, w, bm), 10)
         k2_plain = time_ms(lambda: lt_encode_ref(a, idx, w, bm), 2)
+        # What the card's memory gives a plain copy of A (read and write), and
+        # the rate of K2's own traffic through L2: every neighbour tile read
+        # and the output written.
+        dst = torch.empty_like(a)
+        copy_tbps = 2 * a.numel() * 4 / time_ms(lambda: dst.copy_(a), 10) / 1e9
+        del dst
         torch.cuda.empty_cache()
         G = torch.as_tensor(code.dense_generator(), device=dev)  # (C, R)
         a2 = a.view(R, bm * cols)
@@ -510,7 +517,9 @@ def rateless_data_plane(dev) -> dict:
               k2_ms=f"{k2_ms:.4f}", bound_ms=f"{k2_bound:.4f}",
               share_of_bound=f"{k2_bound / k2_ms:.3f}", plain_ms=f"{k2_plain:.4f}",
               torch_mm_ms=f"{k2_lib:.4f}", bytes=k2_bytes, max_abs_err=f"{k2_err:.3e}",
-              tol=f"{k2_tol:.3e}")
+              tol=f"{k2_tol:.3e}", hbm_tbps=f"{k2_bytes / k2_ms / 1e9:.3f}",
+              gather_tbps=f"{(nnz * blk + coded.numel() * 4) / k2_ms / 1e9:.3f}",
+              copy_tbps=f"{copy_tbps:.3f}")
         del coded, G
         torch.cuda.empty_cache()
 
@@ -685,8 +694,10 @@ def check_flash_attention_against_plain(dev) -> None:
     heads, and the serving path's prefill and decode shapes."""
     import torch
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention.kernel import split_plan
 
     gen = torch.Generator(device=dev).manual_seed(5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     model = [(f"phi4-{name}", c["B"], c["Hq"], c["Hkv"], c["Tq"], c["buf"], c["D"], True, None,
               None, c["q_offset"], c["tk_valid"])
              for name, c in (("prefill", FA_PREFILL), ("decode", FA_DECODE))]
@@ -703,8 +714,10 @@ def check_flash_attention_against_plain(dev) -> None:
             torch.cuda.synchronize()
             err, ok = _fa_err(out, ref, dt)
             rtol, atol = FA_TOL[tag]
+            plan = split_plan(B, Hq, Hkv, Tq, Tk, D, sms, dt == torch.float32 and D % 4 == 0)
             phase("k4-check", case=f"{name}-{tag}", shape=f"B{B}H{Hq}/{Hkv}Tq{Tq}Tk{Tk}D{D}",
-                  tk_valid=valid, max_abs_err=f"{err:.3e}", rtol=rtol, atol=atol)
+                  tk_valid=valid, instance="wgmma" if plan.wgmma else "cuda-cores",
+                  splits=plan.n_split, max_abs_err=f"{err:.3e}", rtol=rtol, atol=atol)
             if not ok:
                 raise AssertionError(f"K4 disagrees with its plain version: {name} {tag}")
             del q, k, v, out, ref
@@ -716,8 +729,12 @@ def flash_attention_at_path_shapes(dev) -> dict:
     buffer, masked by the valid length) and the library yardstick
     (scaled_dot_product_attention with enable_gqa and an explicit mask, over
     the valid prefix; the port never calls it) at the serving path's
-    prefill and decode shapes, f32, beside the bound of the same work.
-    Returns the sums over the two shapes for the kernels line."""
+    prefill and decode shapes, f32, beside the bound of the same work: the
+    prefill on the tensor cores (3xTF32 wgmma, the profiler must see that
+    instance and no other), against three TF32 products on the tensor cores
+    and, for comparison, fp32 on the CUDA cores; the decode step on the CUDA
+    cores.  Then ``[k4-precision]`` at the prefill shape.  Returns the sums
+    over the two shapes for the kernels line."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_flops, attention_ref,
@@ -725,7 +742,9 @@ def flash_attention_at_path_shapes(dev) -> dict:
     from repro_torch.kernels.flash_attention.kernel import split_plan
 
     gen = torch.Generator(device=dev).manual_seed(6)
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_fp32_cores_ms=0.0,
+               max_abs_err=0.0)
     for name, c in (("prefill", FA_PREFILL), ("decode", FA_DECODE)):
         B, Hq, Hkv, Tq, D, tkv, off = (c[x] for x in ("B", "Hq", "Hkv", "Tq", "D", "tk_valid",
                                                       "q_offset"))
@@ -746,49 +765,92 @@ def flash_attention_at_path_shapes(dev) -> dict:
         def k4():
             return flash_attention_cuda(q, k, v, causal=True, q_offset=off, tk_valid=tkv)
 
+        plan = split_plan(B, Hq, Hkv, Tq, c["buf"], D, sms, True)
+        if plan.wgmma != (Tq > 1):
+            raise AssertionError(f"the {name} shape's plan has wgmma={plan.wgmma}")
         # The kernel's device time (profiler), and CUDA events around
         # back-to-back calls, which also count the card waiting for the
         # host's enqueue where a call is as short as a decode step's.
-        ms = kernel_device_ms(k4, 20 if Tq > 1 else 200,
-                              dict(k4="flash_attention_kernel"))["k4"]
+        kernel = "flash_attention_wgmma_kernel" if plan.wgmma else "flash_attention_kernel"
+        steps = kernel_device_ms(k4, 20 if Tq > 1 else 200, dict(k4=kernel))
+        if steps["other"] > 0:
+            raise AssertionError(f"the {name} shape launched kernels besides {kernel}")
+        ms = steps["k4"]
         event_ms = time_ms(k4, 20 if Tq > 1 else 200)
         plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=True, q_offset=off,
                                                  kv_len=tkv), 5 if Tq > 1 else 50)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, *kv, attn_mask=mask,
                                                                  enable_gqa=True),
                          20 if Tq > 1 else 200)
-        # Bound: q and the output once, the valid K and V prefix once,
-        # against the useful FMAs of the causal pairs in fp32.
+        # Bounds: q and the output once, the valid K and V prefix once,
+        # against the useful FMAs of the causal pairs: three TF32 products on
+        # the tensor cores where the instance runs them, fp32 on the CUDA
+        # cores otherwise (and for comparison).
         ops = attention_flops(B, Hq, Tq, tkv, D, True, None)
         nbytes = 2 * q.numel() * 4 + 2 * B * Hkv * tkv * D * 4
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
-        bound = max(t_bytes, t_ops)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = split_plan(B, Hq, Hkv, Tq, c["buf"], D, sms)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_fp32 = ops / FP32_FLOPS * 1e3
+        t_ops = 3 * ops / TF32_FLOPS * 1e3 if plan.wgmma else t_fp32
+        bound, bound_fp32 = max(t_bytes, t_ops), max(t_bytes, t_fp32)
         if Tq == 1 and plan.working_ctas(B, Hkv, tkv) < sms:
             raise AssertionError(f"the decode step splits over {plan.working_ctas(B, Hkv, tkv)} "
                                  f"working CTAs, fewer than the {sms} SMs")
         phase(f"k4-{name}-shape", B=B, Hq=Hq, Hkv=Hkv, Tq=Tq, buffer=c["buf"], q_offset=off,
-              tk_valid=tkv, D=D, splits=plan.n_split, chunk=plan.chunk,
+              tk_valid=tkv, D=D, instance=kernel, splits=plan.n_split, chunk=plan.chunk,
               ctas=plan.ctas(B, Hkv), working_ctas=plan.working_ctas(B, Hkv, tkv),
               k4_ms=f"{ms:.4f}", k4_event_ms=f"{event_ms:.4f}", bound_ms=f"{bound:.4f}",
               bound_by="bytes" if t_bytes >= t_ops else "operations",
-              share_of_bound=f"{bound / ms:.3f}", gflop=f"{ops / 1e9:.4f}",
-              k4_tflops=f"{ops / ms / 1e9:.2f}", mbytes=f"{nbytes / 1e6:.2f}",
-              k4_gbps=f"{nbytes / ms / 1e6:.1f}", plain_ms=f"{plain_ms:.4f}",
-              sdpa_ms=f"{lib_ms:.4f}", sdpa_max_abs_diff=f"{lib_err:.3e}",
-              max_abs_err=f"{err:.3e}")
+              share_of_bound=f"{bound / ms:.3f}", bound_fp32_cores_ms=f"{bound_fp32:.4f}",
+              gflop=f"{ops / 1e9:.4f}", k4_tflops=f"{ops / ms / 1e9:.2f}",
+              mbytes=f"{nbytes / 1e6:.2f}", k4_gbps=f"{nbytes / ms / 1e6:.1f}",
+              plain_ms=f"{plain_ms:.4f}", sdpa_ms=f"{lib_ms:.4f}",
+              sdpa_max_abs_diff=f"{lib_err:.3e}", max_abs_err=f"{err:.3e}")
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                         ("bound_ms", bound)):
+                         ("bound_ms", bound), ("bound_fp32_cores_ms", bound_fp32)):
             tot[key] += val
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
         tot[f"{name}_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        if name == "prefill":
+            k4_precision(out, q, k[:, :, :tkv], v[:, :, :tkv])
         del q, k, v, kv, out, lib
         torch.cuda.empty_cache()
     # The sum is dominated by the prefill's operations bound.
     tot["bound_by"] = tot.pop("prefill_bound_by")
     tot.pop("decode_bound_by")
     return tot
+
+
+def k4_precision(out, q, k, v) -> None:
+    """Why K4's prefill runs 3xTF32: its error at the prefill shape against
+    an fp64 attention, beside the plain version's (fp32 on cuBLAS) and one
+    TF32 product's (``ref.attention_3xtf32`` with ``products=1``), each as a
+    share of FA_TOL, max |err| / (atol + rtol |ref|).  Fails unless K4
+    keeps the tolerance."""
+    import torch
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_3xtf32
+
+    group = q.shape[1] // k.shape[1]
+    s = (q.double() @ k.double().repeat_interleave(group, 1).transpose(-1, -2))
+    s /= q.shape[-1] ** 0.5
+    s.masked_fill_(~torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).tril(), -torch.inf)
+    exact = torch.softmax(s, dim=-1) @ v.double().repeat_interleave(group, 1)
+    del s
+    rtol, atol = FA_TOL["float32"]
+    tol = atol + rtol * exact.abs()
+    runs = {"k4": lambda: out, "plain": lambda: attention_ref(q, k, v, causal=True),
+            "tf32": lambda: attention_3xtf32(q, k, v, products=1)}
+    errs, shares = {}, {}
+    for name, run in runs.items():
+        d = (run().double() - exact).abs()
+        errs[name], shares[name] = float(d.max()), float((d / tol).max())
+        del d
+    phase("k4-precision", rtol=rtol, atol=atol,
+          **{f"{n}_err": f"{e:.3e}" for n, e in errs.items()},
+          **{f"{n}_share_of_tol": f"{sh:.4f}" for n, sh in shares.items()})
+    del exact, tol
+    if not shares["k4"] <= 1.0:
+        raise AssertionError(f"K4 misses FA_TOL against fp64: {shares['k4']:.3f} of it")
 
 
 def _gb(tree) -> float:
@@ -947,7 +1009,7 @@ def profile_decode(model, params, toks, steps: int = 3) -> None:
     busy = sum(dev_us(e) for e in kern) / 1e3 / steps
     fam = {"k4": 0.0, "gemm": 0.0}
     for e in kern:
-        key = ("k4" if "flash_attention_kernel" in e.key else
+        key = ("k4" if "flash_attention_" in e.key else
                "gemm" if "gemm" in e.key.lower() or "splitkreduce" in e.key.lower() else None)
         if key:
             fam[key] += dev_us(e) / 1e3 / steps
@@ -1060,9 +1122,10 @@ def main() -> int:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "Function properties for" in line:
                 fn = line.split("Function properties for", 1)[1].strip()
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance Loss" in line:
                 phase("ptxas", source=name, function=fn[-96:], info=repr(line.strip()))
     tensor_core_sass(libs["coded_matmul.cu"], "coded_matmul_wgmma_kernel")
+    tensor_core_sass(libs["flash_attention.cu"], "flash_attention_wgmma_kernel")
 
     # 3.-4. K1, K2 and K3 against their plain versions, then K1 at the main
     # path's shape.

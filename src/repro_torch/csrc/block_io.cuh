@@ -62,9 +62,10 @@ __device__ __forceinline__ void load_edge(float (&v)[VEC], const T* p, int left)
     for (int i = 0; i < VEC; ++i) v[i] = i < left ? to_f32(p[i]) : 0.f;
 }
 
-// Write VEC values at p in T: one 16-byte store when `vector`, else element
-// by element up to `left`.
-template <typename T, int VEC>
+// Write VEC values at p in T: one 16-byte store when `vector` (a streaming
+// store, st.global.cs, when STREAM: the output is not read again), else
+// element by element up to `left`.
+template <typename T, int VEC, bool STREAM = false>
 __device__ __forceinline__ void store_row_piece(T* p, const float (&v)[VEC], bool vector,
                                                 int left) {
     if (vector) {
@@ -72,7 +73,8 @@ __device__ __forceinline__ void store_row_piece(T* p, const float (&v)[VEC], boo
         T* e = reinterpret_cast<T*>(&raw);
 #pragma unroll
         for (int i = 0; i < VEC; ++i) e[i] = from_f32<T>(v[i]);
-        *reinterpret_cast<uint4*>(p) = raw;
+        if (STREAM) __stcs(reinterpret_cast<uint4*>(p), raw);
+        else *reinterpret_cast<uint4*>(p) = raw;
     } else {
 #pragma unroll
         for (int i = 0; i < VEC; ++i)
@@ -93,8 +95,8 @@ __device__ __forceinline__ void store_row_piece(T* p, const float (&v)[VEC], boo
 // VECTOR: 16-byte loads and stores (cols a multiple of VEC, 16-byte aligned
 // pointers), else single elements with the ragged edge masked.  READ_ONLY:
 // x is loaded through the read-only path, which only a launch that does not
-// write x may take.
-template <typename T, int ROWS, bool VECTOR, bool READ_ONLY>
+// write x may take.  STREAM: out is written with streaming stores.
+template <typename T, int ROWS, bool VECTOR, bool READ_ONLY, bool STREAM = false>
 __device__ __forceinline__ void gather_accumulate(
     const T* init, const T* x, T* out, const int* s_src, const float* s_w, int nnz,
     const uint8_t* s_bad, const int32_t* __restrict__ idx, const float* __restrict__ w,
@@ -143,7 +145,7 @@ __device__ __forceinline__ void gather_accumulate(
         }
 #pragma unroll
         for (int i = 0; i < VEC; ++i) acc[r][i] *= scale;
-        store_row_piece<T, VEC>(out + (size_t)row * cols + c0, acc[r], VECTOR, left);
+        store_row_piece<T, VEC, STREAM>(out + (size_t)row * cols + c0, acc[r], VECTOR, left);
     }
 }
 

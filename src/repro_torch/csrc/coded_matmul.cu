@@ -76,16 +76,17 @@
 // Bound with ctypes: a plain C interface, pointers and the stream passed as
 // void*, the launch error returned from cudaGetLastError().
 
-#include <cuda.h>  // CUtensorMap; cuTensorMapEncodeTiled is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "block_io.cuh"
 #include "nonfinite_rows.cuh"
+#include "tma.cuh"
 
 namespace {
 
+using namespace hopper;
 using tiles::from_f32;
 using tiles::to_f32;
 
@@ -157,17 +158,6 @@ coded_matmul_encode_kernel(const float* __restrict__ a, const int32_t* __restric
     }
 }
 
-// v = big + small, both TF32, by truncation: big keeps v's top 10 mantissa
-// bits, rest = v - big is exact, and small keeps rest's top 10; what small
-// drops is below 2^-20 |v|.  One AND each, where cvt.rna took longer on the
-// card, and an AND keeps inf and NaN as they are (rounding by adding half
-// of the dropped bits would carry CUDA's NaN, 0x7fffffff, into -0).
-__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
-    big = __float_as_uint(v) & 0xFFFFE000u;
-    const float rest = v - __uint_as_float(big);
-    small = __float_as_uint(rest) & 0xFFFFE000u;
-}
-
 // The plain fp32 dot product of one encoded row and one X column: the
 // plain version's value where the tensor-core sum is not finite.
 __device__ __noinline__ float plain_dot(const float* __restrict__ a_row,
@@ -185,94 +175,6 @@ constexpr int WG_THREADS = 128 * WG_CONSUMERS + 32;      // + one producer warp
 constexpr int WG_TILE_BYTES = WG_BM * WG_BK * 4;         // 16 KB: 128 rows of 128 B
 constexpr int WG_STAGE_BYTES = 3 * WG_TILE_BYTES;        // A, X^T big, X^T small
 constexpr size_t WG_SMEM = (size_t)WG_STAGES * WG_STAGE_BYTES + 1024;  // + alignment
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
-// Wait for the phase of `parity` to complete.  A wait that outlasts 10 s
-// traps (a launch error) instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-    const uint32_t addr = smem_u32(bar);
-    uint64_t t0 = 0;
-    for (int spin = 0;; ++spin) {
-        uint32_t done;
-        asm volatile(
-            "{\n .reg .pred p;\n"
-            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            " selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-        if (done) return;
-        uint64_t now;
-        asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-        if (spin == 0) t0 = now;
-        else if (now - t0 > 10000000000ull) __trap();
-    }
-}
-// One 2D TMA tile (inner coordinate c0, row c1) into shared memory,
-// completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
-                                         uint64_t* bar) {
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1, {%2, %3}], [%4];\n"
-        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-           "r"(smem_u32(bar))
-        : "memory");
-}
-// Shared-memory descriptor of a K-major tile of 128-byte rows in the
-// 128-byte swizzle (8-row atoms of 1024 bytes), starting `byte_off` bytes
-// into the row (the k8 step).
-__device__ __forceinline__ uint64_t wgmma_desc(const void* tile, int byte_off) {
-    const uint64_t addr = smem_u32(tile) + byte_off;
-    return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Registers an in-flight wgmma reads: kept (unchanged, unreused) up to here.
-__device__ __forceinline__ void keep_live(uint32_t& u, uint32_t& v) {
-    asm volatile("" : "+r"(u), "+r"(v) :: "memory");
-}
-
-// d (64 x 128, this thread's 64 floats) = (scale_d ? d : 0) + a (64 x 8,
-// registers) . b (8 x 128, shared memory, K-major), TF32 in, fp32 sum.
-__device__ __forceinline__ void wgmma_tf32_m64n128k8(float (&d)[64], const uint32_t (&a)[4],
-                                                     uint64_t desc_b, int scale_d) {
-    asm volatile(
-        "{\n .reg .pred p;\n setp.ne.b32 p, %68, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %69, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(desc_b));
-}
 
 // The prologue's X step: xt_big / xt_small (n, kp) = the TF32 split of X^T,
 // zero in the columns k..kp-1.  32 x 32 tiles through shared memory.
@@ -332,7 +234,7 @@ coded_matmul_wgmma_kernel(const __grid_constant__ WgMaps maps, const float* __re
             mbar_init(&full[s], 1);
             mbar_init(&empty[s], WG_CONSUMERS);
         }
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        mbar_init_fence();
     }
     __syncthreads();
     const int n_kt = (kp + WG_BK - 1) / WG_BK;
@@ -346,9 +248,9 @@ coded_matmul_wgmma_kernel(const __grid_constant__ WgMaps maps, const float* __re
                 if (kt >= WG_STAGES) mbar_wait(&empty[s], ((kt / WG_STAGES) + 1) & 1);
                 uint8_t* st = smem + (size_t)s * WG_STAGE_BYTES;
                 mbar_expect_tx(&full[s], WG_STAGE_BYTES);
-                tma_load(st, amap, kt * WG_BK, arow, &full[s]);
-                tma_load(st + WG_TILE_BYTES, &maps.xt_big, kt * WG_BK, col0, &full[s]);
-                tma_load(st + 2 * WG_TILE_BYTES, &maps.xt_small, kt * WG_BK, col0, &full[s]);
+                tma_load_2d(st, amap, kt * WG_BK, arow, &full[s]);
+                tma_load_2d(st + WG_TILE_BYTES, &maps.xt_big, kt * WG_BK, col0, &full[s]);
+                tma_load_2d(st + 2 * WG_TILE_BYTES, &maps.xt_small, kt * WG_BK, col0, &full[s]);
             }
         }
         return;
@@ -390,7 +292,7 @@ coded_matmul_wgmma_kernel(const __grid_constant__ WgMaps maps, const float* __re
             wgmma_tf32_m64n128k8(tile, big[q], xb, 1);
         }
         wgmma_commit();
-        wgmma_wait0();
+        wgmma_wait<0>();
 #pragma unroll
         for (int q = 0; q < WG_BK / 8; ++q)
 #pragma unroll
@@ -582,40 +484,15 @@ coded_matmul_regs_kernel(const T* __restrict__ a, const T* __restrict__ x,
     write_out(out, acc, ro, s_bad, b, row0, col0, bm, n);
 }
 
-// cuTensorMapEncodeTiled, found through the runtime (no -lcuda).
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-    static EncodeTiledFn fn = nullptr;
-    if (fn == nullptr) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found;
-        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-                cudaSuccess &&
-            found == cudaDriverEntryPointSuccess)
-            fn = reinterpret_cast<EncodeTiledFn>(p);
-    }
-    return fn;
-}
-
 // A TMA map of a row-major float32 matrix (rows, cols; row stride
 // row_floats, a multiple of 4), read in 128-row x 32-column boxes in the
 // 128-byte swizzle; reads past the edges give zeros.
 bool tile_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
               uint64_t row_floats) {
-    EncodeTiledFn fn = encode_tiled();
-    if (fn == nullptr) return false;
     const cuuint64_t dims[2] = {cols, rows};
     const cuuint64_t strides[1] = {row_floats * sizeof(float)};
     const cuuint32_t box[2] = {WG_BK, WG_BM};
-    const cuuint32_t steps[2] = {1, 1};
-    return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides,
-              box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-           CUDA_SUCCESS;
+    return float_map(map, base, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace

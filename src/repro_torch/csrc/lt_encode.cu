@@ -10,22 +10,40 @@
 //
 // What bounds it on this card: it does one FMA per element read, so it is
 // bound by memory (3.35 TB/s on an H100 SXM).  The least traffic is A read
-// once and the output written once; this kernel reads each nonzero-weight
-// neighbour tile of each coded block from device memory or L2 (the TPU
-// kernel does the same: one DMA per (block, tile, slot)).
+// once and the output written once: 0.240 ms and 0.481 ms at the rateless
+// path's two shapes (R 64, bm 256, cols 4096 and R 256, bm 64, cols 8192,
+// C = 2R).  A coded block of degree d reads d source tiles, so the reads
+// come to about A (1 + d K / R), five times A or more: they must come from
+// L2, not from device memory.
 //
-// Design.  One CTA of 256 threads owns one (column tile, row tile, coded
-// block).  Thread 0 compacts the block's idx/w row to its nonzero-weight,
-// in-range neighbours in shared memory (zero weights are padding, so a
-// systematic block reads one tile and a parity its degree).  Each thread
-// owns 16 bytes of columns (4 float32 or 8 bfloat16) in each of the tile's
-// ROWS rows: for every neighbour it issues ROWS independent 16-byte loads and
-// accumulates in fp32 registers, then writes once.  Where the columns are
-// not a multiple of the vector or a pointer is not 16-byte aligned, the same
-// loop runs on single elements with the ragged edge masked, so the caller
-// pads nothing (the TPU path pads columns to bc = 512).  The loop is
-// tiles::gather_accumulate (block_io.cuh), which lt_decode.cu shares; K2
-// takes it with a zero start, sign +1, scale 1 and read-only loads.
+// Design.  One CTA of 256 threads owns one (coded block, ROWS = 2 rows,
+// 1024 columns of float32 / 2048 of bfloat16).  The coded block is the
+// fastest axis of the grid, so the CTAs in flight (up to eight an SM) are
+// every coded block of a few (row, column) slabs: a slab's source tiles,
+// R x 2 rows x 4 KB (512 KB at the first shape, 2 MB at the second), leave
+// device memory once and every coded block that names them reads them from
+// the 50 MB L2.  (With the column tiles fastest, the CTAs in flight would
+// cover a few whole coded blocks, and each neighbour tile would come from
+// device memory again.)  The neighbour reads, about 5x A, then come from
+// L2: chip_smoke.py's [k2-rateless-shape] prints their rate with the
+// output's (gather_tbps) beside a copy's (copy_tbps).  Two rows a CTA ran
+// fastest of the counts tried on the card, 1 to 16 (one row keeps too few
+// loads in flight a thread).  A slab of all R source blocks held in
+// shared memory, one CTA an SM walking its rows, ran slower and was not
+// kept; at R = 256 a slab row holds only 256 bytes of each source block.
+//
+// Thread 0 compacts the block's idx/w row to its nonzero-weight, in-range
+// neighbours in shared memory (zero weights are padding, so a systematic
+// block reads one tile and a parity its degree).  Each thread owns 16 bytes
+// of columns (4 float32 or 8 bfloat16) in each of the ROWS rows: for every
+// neighbour it issues ROWS independent 16-byte loads and accumulates in
+// fp32 registers, then writes once with streaming stores (the output is not
+// read again).  Where the columns are not a multiple of the vector or a
+// pointer is not 16-byte aligned, the same loop runs on single elements with
+// the ragged edge masked, so the caller pads nothing (the TPU path pads
+// columns to bc = 512).  The loop is tiles::gather_accumulate
+// (block_io.cuh), which lt_decode.cu shares; K2 takes it with a zero start,
+// sign +1, scale 1, read-only loads and streaming stores.
 //
 // Non-finite input: the plain version multiplies padding slots too (0 * inf
 // = NaN).  The launch first marks the source rows that padding slots reach
@@ -46,7 +64,7 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int ROWS = 4;  // rows of a coded block per CTA: independent loads per neighbour
+constexpr int ROWS = 2;  // rows of a coded block per CTA: independent loads per neighbour
 
 template <typename T, bool VECTOR>
 __global__ void __launch_bounds__(THREADS)
@@ -60,8 +78,8 @@ lt_encode_kernel(const T* __restrict__ a, const int32_t* __restrict__ idx,
     __shared__ int s_nnz;
     __shared__ uint8_t s_bad[ROWS];
 
-    const int b = blockIdx.z, row0 = blockIdx.y * ROWS;
-    const int c0 = (blockIdx.x * THREADS + threadIdx.x) * VEC;
+    const int b = blockIdx.x, row0 = blockIdx.y * ROWS;  // coded blocks fastest
+    const int c0 = (blockIdx.z * THREADS + threadIdx.x) * VEC;
     const int32_t* idx_b = idx + (size_t)b * d_max;
     const float* w_b = w + (size_t)b * d_max;
     if (threadIdx.x >= 32 && threadIdx.x < 32 + ROWS) {  // read after the compaction's sync
@@ -71,9 +89,9 @@ lt_encode_kernel(const T* __restrict__ a, const int32_t* __restrict__ idx,
     }
     const int nnz = tiles::compact_neighbours(idx_b, w_b, d_max, R, s_src, s_w, &s_nnz);
     if (c0 >= cols) return;
-    tiles::gather_accumulate<T, ROWS, VECTOR, true>(nullptr, a, out + (size_t)b * bm * cols,
-                                                    s_src, s_w, nnz, s_bad, idx_b, w_b, d_max,
-                                                    R, 1.f, 1.f, bm, row0, cols, c0);
+    tiles::gather_accumulate<T, ROWS, VECTOR, true, true>(
+        nullptr, a, out + (size_t)b * bm * cols, s_src, s_w, nnz, s_bad, idx_b, w_b, d_max, R,
+        1.f, 1.f, bm, row0, cols, c0);
 }
 
 template <typename T>
@@ -86,7 +104,7 @@ int launch(const void* a, const void* idx, const void* w, void* out, void* scrat
     uint8_t* marks = static_cast<uint8_t*>(scratch);
     cudaError_t err = nonfinite::launch_marks(at, R, bm, cols, idx32, wf, C * d_max, marks, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((cols + THREADS * VEC - 1) / (THREADS * VEC), (bm + ROWS - 1) / ROWS, C);
+    const dim3 grid(C, (bm + ROWS - 1) / ROWS, (cols + THREADS * VEC - 1) / (THREADS * VEC));
     const size_t smem = 2 * sizeof(int) * (size_t)d_max;
     const bool vector = cols % VEC == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                         reinterpret_cast<uintptr_t>(out) % 16 == 0;

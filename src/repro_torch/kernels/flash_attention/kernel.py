@@ -11,6 +11,14 @@ is recompiled.  q, k and v may be strided views (the einsum outputs of the
 attention block) as long as their last dimension is contiguous.  It takes
 CUDA tensors only; the plain versions for the CPU are in ``ref.py``.
 
+Float32 calls with more than 8 query rows a KV head, D <= 128 and 16-byte
+rows and strides run on the tensor cores (3xTF32 wgmma, K and V by TMA,
+128 rows a CTA); ``ref.attention_3xtf32`` is the plain model of its
+arithmetic.  The rest (bfloat16, decode steps, D > 128, unaligned rows, and
+every launch whose keys are split) runs on the CUDA cores.  The choice
+depends on the call's shape, type and alignment and the card's SM count,
+never on the values (:func:`split_plan`).
+
 Where the grid would not fill the card's SMs (a decode step), the keys are
 split over more CTAs (:func:`split_plan`), each leaving a partial softmax
 that the tile's last CTA combines in the same launch
@@ -38,6 +46,9 @@ _INT_MAX = 2**31 - 1
 KEY_TILE = 64       # BK of csrc/flash_attention.cu
 SPLIT_KEYS = 128    # keys a chunk when the keys are split (two tiles)
 MAX_SPLIT = 64      # chunks a query tile at most: longer buffers take longer chunks
+NARROW_ROWS = 8     # query rows a KV head up to which the narrow (decode) tile runs
+WGMMA_ROWS = 128    # packed rows a CTA of the tensor-core instance
+WGMMA_MAX_D = 128   # head dims the tensor-core instance takes
 
 _scratch: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -48,6 +59,7 @@ class SplitPlan(NamedTuple):
     tiles: int    # query tiles a (b, KV head)
     n_split: int  # key chunks a query tile (1: no split)
     chunk: int    # keys a chunk
+    wgmma: bool = False  # the tensor-core instance (3xTF32 wgmma)
 
     def ctas(self, B: int, Hkv: int) -> int:
         return self.tiles * self.n_split * Hkv * B
@@ -60,17 +72,24 @@ class SplitPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def split_plan(B: int, Hq: int, Hkv: int, Tq: int, Tk: int, D: int, sms: int) -> SplitPlan:
-    """The launch's tile (as ``dispatch`` in csrc/flash_attention.cu picks
-    it) and key split: where the unsplit grid (tiles, Hkv, B) has fewer CTAs
-    than the card's ``sms``, the Tk keys of the buffer (never ``tk_valid``,
-    so the grid is the same at every decode step) go in chunks of
-    ``SPLIT_KEYS``, longer if that would make more than ``MAX_SPLIT``."""
+def split_plan(B: int, Hq: int, Hkv: int, Tq: int, Tk: int, D: int, sms: int,
+               tensor_cores: bool = False) -> SplitPlan:
+    """The launch's instance and tile (as ``dispatch`` in
+    csrc/flash_attention.cu picks them) and key split: where the CUDA-core
+    grid (tiles, Hkv, B) has fewer CTAs than the card's ``sms``, the Tk keys
+    of the buffer (never ``tk_valid``, so the grid is the same at every
+    decode step) go in chunks of ``SPLIT_KEYS``, longer if that would make
+    more than ``MAX_SPLIT``.  ``tensor_cores``: the call is float32 with
+    16-byte rows and strides; an unsplit launch with more than
+    ``NARROW_ROWS`` rows a KV head and D <= ``WGMMA_MAX_D`` then runs the
+    tensor-core instance, ``WGMMA_ROWS`` rows a CTA."""
     rows = Hq // Hkv * Tq
     dmax = 64 if D <= 64 else 128 if D <= 128 else 256
-    bq = 8 if rows <= 8 else 64 if D <= 128 else 32
+    bq = 8 if rows <= NARROW_ROWS else 64 if D <= 128 else 32
     tiles = -(-rows // bq)
     if tiles * Hkv * B >= sms or Tk <= SPLIT_KEYS:
+        if tensor_cores and rows > NARROW_ROWS and D <= WGMMA_MAX_D:
+            return SplitPlan(WGMMA_ROWS, WGMMA_MAX_D, -(-rows // WGMMA_ROWS), 1, max(Tk, 1), True)
         return SplitPlan(bq, dmax, tiles, 1, max(Tk, 1))
     chunk = max(SPLIT_KEYS, KEY_TILE * -(-Tk // (MAX_SPLIT * KEY_TILE)))
     return SplitPlan(bq, dmax, tiles, -(-Tk // chunk), chunk)
@@ -151,7 +170,8 @@ def flash_attention_cuda(
     align = 4 * q.element_size()
     vec = D % 4 == 0 and all(s_ % 4 == 0 for s_ in strides) and all(
         t.data_ptr() % align == 0 for t in (q, k, v))
-    plan = split_plan(B, Hq, Hkv, Tq, Tk, D, _sm_count(q.device))
+    plan = split_plan(B, Hq, Hkv, Tq, Tk, D, _sm_count(q.device),
+                      vec and q.dtype == torch.float32)
     part = ticket = None
     if plan.n_split > 1:
         n_tiles = plan.tiles * Hkv * B

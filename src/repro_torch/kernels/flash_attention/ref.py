@@ -14,6 +14,8 @@ from typing import Optional, Union
 
 import torch
 
+from ..coded_matmul.ref import tf32_truncate
+
 NEG_INF = -1e30
 
 
@@ -192,3 +194,65 @@ def attention_split(q, k, v, *, chunk: int, **kw) -> torch.Tensor:
     :func:`attention_ref` with an int ``kv_len``; the plain model of the
     CUDA kernel's split decode."""
     return combine_partials(*attention_split_partials(q, k, v, chunk=chunk, **kw)).to(q.dtype)
+
+
+def attention_3xtf32(
+    q: torch.Tensor,  # (B, Hq, Tq, D)
+    k: torch.Tensor,  # (B, Hkv, Tk, D)
+    v: torch.Tensor,  # (B, Hkv, Tk, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    q_offset: int = 0,
+    kv_len: Optional[int] = None,
+    products: int = 3,
+) -> torch.Tensor:
+    """The plain model of the CUDA kernel's tensor-core instance: over tiles
+    of 64 keys (its BK) of the valid prefix, S = Q K^T and each tile's P V
+    with every operand split into TF32 big and small parts by truncation
+    (``coded_matmul.ref.tf32_truncate``) and small.big + big.small + big.big
+    summed in fp32 (``products=3``; ``products=1`` keeps big.big alone, one
+    TF32 product); the online softmax in fp32, each tile's P V a fresh sum
+    added to the output after the rescale.  The semantics of
+    :func:`attention_ref` with an int ``kv_len``, to TF32 rounding."""
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    valid = Tk if kv_len is None else int(kv_len)
+    kf = k[:, :, :valid].float().repeat_interleave(group, dim=1)
+    vf = v[:, :, :valid].float().repeat_interleave(group, dim=1)
+
+    def product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        a_big, b_big = tf32_truncate(a), tf32_truncate(b)
+        if products == 1:
+            return a_big @ b_big
+        a_small, b_small = tf32_truncate(a - a_big), tf32_truncate(b - b_big)
+        return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+    qf = q.float()
+    scale = 1.0 / float(D) ** 0.5
+    q_pos = q_offset + torch.arange(Tq, device=q.device)[:, None]
+    m = torch.full((B, Hq, Tq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Hq, Tq), dtype=torch.float32, device=q.device)
+    o = torch.zeros((B, Hq, Tq, D), dtype=torch.float32, device=q.device)
+    for k0 in range(0, valid, 64):
+        kt, vt = kf[:, :, k0:k0 + 64], vf[:, :, k0:k0 + 64]
+        s = product(qf, kt.transpose(-1, -2)) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        k_pos = torch.arange(k0, k0 + kt.shape[2], device=q.device)[None, :]
+        mask = torch.ones((Tq, kt.shape[2]), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window is not None:
+            mask &= (q_pos - k_pos) < window
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = corr * l + p.sum(dim=-1)
+        o = o * corr[..., None] + product(p, vt)
+        m = m_new
+    out = torch.where(l[..., None] > 0, o / torch.where(l > 0, l, 1.0)[..., None], 0.0)
+    return out.to(q.dtype)

@@ -399,3 +399,157 @@ def test_flash_attention_split_matches_plain_version(card, B, Hq, Hkv, Tq, Tk, D
     rtol, atol = FA_TOL[dtype]
     torch.testing.assert_close(outs[0].float(), ref.float(), rtol=rtol, atol=atol)
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+# --- K4's tensor-core instance (3xTF32 wgmma) and K2's raster ------------------
+
+from repro_torch.kernels.flash_attention.ref import attention_3xtf32  # noqa: E402
+
+# The FA_CASES that the tensor-core instance serves (float32, more than 8
+# rows a KV head, D <= 128, aligned rows, no key split on a 132-SM card),
+# then wgmma-specific shapes over many key tiles (enough CTAs that the keys
+# are not split): phi4-mini's prefill at full size in a 2048-slot buffer,
+# head dims 64 and 96 (a partial 32-column chunk and output half), a window
+# and a softcap, non-causal with an offset, MHA; no row count fills whole
+# 128-row tiles.
+H100_SMS = 132
+WG_CASES = [c for c in FA_CASES if split_plan(*c[:6], H100_SMS, True).wgmma] + [
+    (4, 24, 8, 1023, 2048, 128, True, None, None, 0, 1023),
+    (4, 24, 8, 300, 512, 64, True, None, None, 100, 400),
+    (4, 16, 8, 200, 260, 96, True, None, None, 60, None),
+    (4, 16, 8, 160, 300, 128, True, 100, None, 140, None),
+    (4, 16, 8, 160, 192, 128, True, None, 30.0, 32, None),
+    (4, 24, 8, 150, 200, 128, False, None, None, 50, 190),
+    (4, 32, 32, 130, 130, 128, True, None, None, 0, None),
+]
+
+
+def _fa_inputs(card, B, Hq, Hkv, Tq, Tk, D, seed):
+    rng = np.random.default_rng(seed)
+    q = torch.as_tensor(rng.standard_normal((B, Hq, Tq, D)) * 0.5, dtype=torch.float32,
+                        device=card)
+    k = torch.as_tensor(rng.standard_normal((B, Hkv, Tk, D)) * 0.5, dtype=torch.float32,
+                        device=card)
+    v = torch.as_tensor(rng.standard_normal((B, Hkv, Tk, D)), dtype=torch.float32, device=card)
+    return q, k, v
+
+
+def _kernel_names(call) -> set:
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if "flash_attention" in e.key}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal,window,softcap,q_offset,tk_valid", WG_CASES)
+def test_flash_attention_wgmma_matches_plain_version(card, B, Hq, Hkv, Tq, Tk, D, causal,
+                                                     window, softcap, q_offset, tk_valid):
+    """The tensor-core instance against the plain version within the fp32
+    tolerance, NaN in every slot beyond tk_valid, and against its plain
+    model (``ref.attention_3xtf32``) as closely."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert split_plan(B, Hq, Hkv, Tq, Tk, D, sms, True).wgmma
+    q, k, v = _fa_inputs(card, B, Hq, Hkv, Tq, Tk, D, Tq * 1000 + Tk + D)
+    valid = Tk if tk_valid is None else tk_valid
+    k[:, :, valid:], v[:, :, valid:] = torch.nan, torch.nan
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    out = flash_attention(q, k, v, tk_valid=tk_valid, **kw)
+    ref = (attention_ref(q, k[:, :, :valid], v[:, :, :valid], **kw) if valid
+           else torch.zeros_like(q))
+    model = attention_3xtf32(q, k, v, kv_len=valid, **kw)
+    torch.cuda.synchronize()
+    rtol, atol = FA_TOL[torch.float32]
+    torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+    torch.testing.assert_close(out, model, rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["nan-q", "inf-k", "-inf-k", "inf-v", "nan-v"])
+def test_flash_attention_wgmma_non_finite_input_matches_plain_version(card, case):
+    """An inf or a NaN in q, k or v.  The split turns an inf's small part
+    into NaN; the kernel recomputes such scores and outputs in plain fp32,
+    so it gives the plain version's result, NaN-equal: a NaN or +inf score
+    makes its row's softmax NaN, which the plain version (and the kernel)
+    write as a zero row; a -inf score weighs 0; an inf or a NaN in v makes
+    its column inf or NaN."""
+    B, Hq, Hkv, Tq, Tk, D = 1, 6, 2, 120, 120, 64
+    q, k, v = _fa_inputs(card, B, Hq, Hkv, Tq, Tk, D, 17)
+    clean = attention_ref(q, k, v, causal=True)
+    if case == "nan-q":
+        q[0, 1, 70, 5] = torch.nan
+    if case in ("inf-k", "-inf-k"):  # key 2: q's column 7 decides the score's sign
+        q[0, :3, :, 7] = q[0, :3, :, 7].abs()
+        k[0, 0, 2, 7] = torch.inf if case == "inf-k" else -torch.inf
+    if case == "inf-v":  # key 0, which every row sees
+        v[0, 1, 0, 1] = torch.inf
+    if case == "nan-v":
+        v[0, 0, 3, 2] = torch.nan
+    assert split_plan(B, Hq, Hkv, Tq, Tk, D, H100_SMS, True).wgmma
+    out = flash_attention(q, k, v, causal=True)
+    ref = attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    if case in ("inf-v", "nan-v"):
+        assert not bool(torch.isfinite(ref).all()) and bool(torch.isfinite(ref).any())
+    elif case == "-inf-k":
+        assert bool(torch.isfinite(ref).all()) and not torch.allclose(ref, clean)
+    else:  # rows whose softmax met a NaN come out zero
+        zero = (ref == 0).all(dim=-1)
+        assert bool(zero.any()) and not bool((clean == 0).all(dim=-1).any())
+    rtol, atol = FA_TOL[torch.float32]
+    torch.testing.assert_close(out, ref, rtol=rtol, atol=atol, equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_flash_attention_dispatch_takes_the_tensor_cores_for_float32_prefill(card):
+    """More than 8 rows a KV head at D <= 128 in float32 runs the wgmma
+    instance; a decode step, bfloat16, D = 256 and unaligned rows do not."""
+    q, k, v = _fa_inputs(card, 2, 24, 8, 100, 128, 128, 3)
+    names = _kernel_names(lambda: flash_attention_cuda(q, k, v))
+    assert names and all("flash_attention_wgmma_kernel" in n for n in names)
+    qd = q[:, :, :1].contiguous()
+    names = _kernel_names(lambda: flash_attention_cuda(qd, k, v, q_offset=127))
+    assert names and not any("wgmma" in n for n in names)
+    names = _kernel_names(lambda: flash_attention_cuda(q.bfloat16(), k.bfloat16(), v.bfloat16()))
+    assert names and not any("wgmma" in n for n in names)
+    q2, k2, v2 = _fa_inputs(card, 1, 4, 4, 40, 40, 256, 4)
+    names = _kernel_names(lambda: flash_attention_cuda(q2, k2, v2))
+    assert names and not any("wgmma" in n for n in names)
+    q3, k3, v3 = _fa_inputs(card, 1, 4, 4, 40, 40, 18, 5)  # D = 18: rows are not 16-byte aligned
+    names = _kernel_names(lambda: flash_attention_cuda(q3, k3, v3))
+    assert names and not any("wgmma" in n for n in names)
+
+
+# The rateless path's two shapes (R 64, bm 256, cols 4096 and R 256, bm 64,
+# cols 8192) cut to 8 source blocks, K2 on the decoder's code.
+K2_SHAPES = [(8, 8, 256, 4096), (8, 8, 64, 8192)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["aligned", "ragged", "unaligned", "nonfinite", "bf16"])
+@pytest.mark.parametrize("R,K,bm,cols", K2_SHAPES)
+def test_lt_encode_at_the_rateless_shapes_matches_plain_version(card, R, K, bm, cols, layout):
+    """K2 with the coded blocks fastest in its grid, at the rateless path's
+    widths: aligned rows, ragged columns, a source that starts one element
+    past a 16-byte boundary (the element-wise loop), and an inf and a NaN in
+    source block 0, which the decoder code's padding slots name (NaN rows),
+    compared NaN-equal."""
+    code = dec_pt.make_decoder_code(R, K)
+    assert (code.weights == 0).any()
+    dtype = torch.bfloat16 if layout == "bf16" else torch.float32
+    c = cols - 3 if layout == "ragged" else cols
+    rng = np.random.default_rng(R + bm)
+    flat = torch.as_tensor(rng.standard_normal(R * bm * c + 1), dtype=dtype, device=card)
+    a = (flat[1:] if layout == "unaligned" else flat[:-1]).view(R * bm, c)
+    if layout == "nonfinite":
+        a[3, 1], a[bm - 1, 0] = torch.inf, torch.nan
+    idx, w = torch.as_tensor(code.idx, device=card), torch.as_tensor(code.weights, device=card)
+    out = lt_encode(a, idx, w, bm=bm)
+    ref = lt_encode_ref(a, idx, w, bm)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    assert (layout == "nonfinite") == (not bool(torch.isfinite(ref).all()))
+    finite = ref.float()[torch.isfinite(ref)].abs().max()
+    tol = TOL[dtype] * (1.0 + float(finite))
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol, equal_nan=True)

@@ -295,3 +295,102 @@ def test_split_attention_gives_zero_where_no_key_is_valid():
     q, k, v = (torch.as_tensor(a) for a in _qkv(9, 1, 4, 2, 1, 512, 8))
     out = attention_split(q, k, v, chunk=128, causal=True, q_offset=0, kv_len=0)
     assert torch.equal(out, torch.zeros_like(q))
+
+
+# --- the tensor-core instance: its launch rule and its 3xTF32 arithmetic -------
+
+from repro_torch.kernels.flash_attention.ref import attention_3xtf32  # noqa: E402
+
+# FA_TOL["float32"] of chip_smoke.py and tests/test_torch_cuda.py: the
+# reference suite's float32 tolerance, rtol 2e-5 and atol 1.6e-4.
+FA_RTOL, FA_ATOL = 2e-5, 1.6e-4
+# tests/test_torch_cuda.py's FA_CASES that the tensor-core instance serves
+# (float32, more than 8 rows a KV head, D <= 128, no key split on 132 SMs):
+# (B, Hq, Hkv, Tq, Tk, D, causal, window, softcap, q_offset, tk_valid).
+WG_FA_CASES = [
+    (1, 2, 2, 32, 32, 16, True, None, None, 0, None),      # MHA
+    (2, 4, 2, 64, 64, 32, True, None, None, 0, None),      # GQA group 2
+    (1, 8, 1, 64, 64, 32, True, None, None, 0, None),      # MQA
+    (1, 2, 2, 128, 128, 64, True, None, None, 0, None),
+    (2, 2, 1, 48, 96, 16, True, None, None, 48, None),     # Tk > Tq
+    (1, 2, 2, 64, 64, 32, True, 8, None, 0, None),         # windows
+    (1, 2, 2, 64, 64, 32, True, 16, None, 0, None),
+    (1, 2, 2, 64, 64, 32, True, 64, None, 0, None),
+    (1, 2, 1, 32, 32, 16, True, None, 10.0, 0, None),      # softcaps
+    (1, 2, 1, 32, 32, 16, True, None, 30.0, 0, None),
+    (1, 2, 1, 32, 32, 16, True, None, 50.0, 0, None),
+    (2, 2, 2, 32, 48, 16, False, None, None, 0, None),     # non-causal
+    (1, 2, 2, 37, 53, 16, True, None, None, 16, None),     # unaligned
+    (2, 6, 2, 23, 64, 24, True, None, None, 0, 23),        # prefill into a cache buffer
+    (1, 4, 2, 5, 40, 8, True, None, None, 3, 0),           # no valid key: zero rows
+]
+
+
+def _fa_share(out, ref) -> float:
+    """max |out - ref| / (atol + rtol |ref|): at most 1 within FA_TOL."""
+    out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
+    return float((np.abs(out - ref) / (FA_ATOL + FA_RTOL * np.abs(ref))).max())
+
+
+def test_split_plan_takes_the_tensor_cores_for_float32_prefill():
+    """The launch rule of csrc/flash_attention.cu's dispatch: float32 with
+    aligned rows (``tensor_cores``), more than 8 rows a KV head, D <= 128 and
+    no key split run the 3xTF32 wgmma instance, 128 rows a CTA; everything
+    else keeps the CUDA-core plan it had."""
+    prefill = split_plan(4, 24, 8, 1023, 2048, 128, H100_SMS, True)
+    assert prefill.wgmma and (prefill.bq, prefill.tiles, prefill.n_split) == (128, 24, 1)
+    assert prefill.ctas(4, 8) == 768
+    assert split_plan(4, 24, 8, 1023, 2048, 128, H100_SMS) == \
+        split_plan(4, 24, 8, 1023, 2048, 128, H100_SMS, False)
+    assert not split_plan(4, 24, 8, 1023, 2048, 128, H100_SMS, False).wgmma  # bf16, unaligned
+    assert not split_plan(4, 24, 8, 1, 2048, 128, H100_SMS, True).wgmma      # decode
+    assert not split_plan(1, 8, 1, 1, 64, 64, H100_SMS, True).wgmma          # 8 rows
+    assert split_plan(1, 9, 1, 1, 64, 64, H100_SMS, True).wgmma              # 9 rows
+    assert not split_plan(1, 4, 4, 70, 200, 256, H100_SMS, True).wgmma       # D 256
+    split = split_plan(1, 6, 2, 5, 1024, 64, H100_SMS, True)                 # few CTAs: split
+    assert not split.wgmma and split.n_split > 1
+    assert split == split_plan(1, 6, 2, 5, 1024, 64, H100_SMS, False)
+    for c in WG_FA_CASES:
+        assert split_plan(*c[:6], H100_SMS, True).wgmma
+
+
+def test_k4_3xtf32_meets_fp32_tolerance_and_tf32_alone_does_not():
+    """Why the tensor-core instance runs 3xTF32: at one (b, KV head) of the
+    serving prefill (3 q heads, 1023 causal tokens, D 128, inputs N(0, 1)),
+    the plain model of its arithmetic stays well within FA_TOL of an fp64
+    attention, while one TF32 product for Q K^T and P V misses it by more
+    than 5x (its TF32 truncation: 10 mantissa bits)."""
+    rng = np.random.default_rng(15)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((1, 3, 1023, 128), (1, 1, 1023, 128), (1, 1, 1023, 128)))
+    s = (q.astype(np.float64) @ np.swapaxes(k.astype(np.float64), -1, -2)) / np.sqrt(128)
+    s = np.where(np.tril(np.ones((1023, 1023), bool)), s, -np.inf)
+    p = np.exp(s - s.max(axis=-1, keepdims=True))
+    exact = (p / p.sum(axis=-1, keepdims=True)) @ v.astype(np.float64)
+    qt, kt, vt = (torch.as_tensor(a) for a in (q, k, v))
+    three = _fa_share(attention_3xtf32(qt, kt, vt).numpy(), exact)
+    one = _fa_share(attention_3xtf32(qt, kt, vt, products=1).numpy(), exact)
+    plain = _fa_share(attention_ref(qt, kt, vt).numpy(), exact)
+    assert three <= 0.1, three
+    assert one > 5.0, one
+    assert plain <= 0.1, plain
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal,window,softcap,q_offset,tk_valid", WG_FA_CASES)
+def test_attention_3xtf32_matches_reference(B, Hq, Hkv, Tq, Tk, D, causal, window, softcap,
+                                            q_offset, tk_valid):
+    """The plain model of the tensor-core instance equals ``attention_ref``
+    and the JAX reference within FA_TOL on every FA_CASES shape the instance
+    serves, with NaN in every slot beyond tk_valid."""
+    q, k, v = _qkv(Tq * 1000 + Tk + D, B, Hq, Hkv, Tq, Tk, D)
+    valid = Tk if tk_valid is None else tk_valid
+    k[:, :, valid:], v[:, :, valid:] = np.nan, np.nan
+    (qj, kj, vj), (qt, kt, vt) = _both([q, k, v])
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    out = attention_3xtf32(qt, kt, vt, kv_len=valid, **kw)
+    if valid == 0:
+        assert torch.equal(out, torch.zeros_like(qt))
+        return
+    ref = attention_ref(qt, kt[:, :, :valid], vt[:, :, :valid], **kw)
+    torch.testing.assert_close(out, ref, rtol=FA_RTOL, atol=FA_ATOL)
+    _close(out, ref_jax(qj, kj[:, :, :valid], vj[:, :, :valid], **kw), FA_RTOL, FA_ATOL)
