@@ -6,7 +6,8 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (and shows
 from its SASS that K1's float32 product and K4's float32 prefill run on the
 tensor cores), holds each against its plain PyTorch version on the card,
 times it at the main path's shape beside its bound, drives the main paths
-through the port's entry points (one C3P task: the coded-matmul data plane
+through the port's entry points (one C3P task: the coded-matmul data plane,
+the helpers' products on K1 and the collector's peeling recoveries on K3,
 and the CCP control plane; the rateless path: the LT payload round trip on
 K2 and K3 and the rateless CCP control plane with the decoder in the loop;
 LM serving: phi4-mini-3.8b at its full published size through
@@ -336,6 +337,102 @@ def k1_precision(out, a_enc, x) -> None:
         raise AssertionError(f"K1 misses the fp32 tolerance against fp64: {errs['k1']:.3e}")
 
 
+def peeling_losses() -> int:
+    """How many of quickstart.coded_offload's survivor sets at MAIN (all
+    shards, then each single shard lost) peel at least one step: K3's
+    launches on the collector's path."""
+    import numpy as np
+    from repro_torch.core import coded_matmul as cm
+    from repro_torch.core import fountain
+
+    plan = cm.plan_coded_matmul(rows=MAIN["rows"], n_shards=MAIN["n_shards"],
+                                overhead=MAIN["overhead"], bm=MAIN["bm"])
+    n = 0
+    for lost in [None] + list(range(MAIN["n_shards"])):
+        ids = np.concatenate([plan.placement[s] for s in range(MAIN["n_shards"]) if s != lost])
+        fplan = fountain.peel_decode_plan(plan.code, ids)
+        n += fplan is not None and fplan.n_peeled > 0
+    return n
+
+
+def collector_times(dev) -> None:
+    """The collector's recovery at MAIN for each survivor set of
+    quickstart.coded_offload: ``recover``'s time on the card (peel on K3),
+    the plain route on the same tensors (``apply_decode_plan``, the CPU
+    route's peel), and the ``torch.cat`` of the survivors' blocks that both
+    begin with; host clock, each call synchronised, mean of 3 after a
+    warm-up.  The survivor sets that peel only: the dense solve is one route
+    on both devices, and the data plane has run it.  The two routes must
+    agree within the data plane's limit."""
+    import numpy as np
+    import torch
+    from repro_torch.core import coded_matmul as cm
+    from repro_torch.core import fountain
+    from repro_torch.kernels.lt_decode import lt_decode_plan_cuda
+
+    plan = cm.plan_coded_matmul(rows=MAIN["rows"], n_shards=MAIN["n_shards"],
+                                overhead=MAIN["overhead"], bm=MAIN["bm"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((MAIN["rows"], MAIN["k_dim"]), generator=gen, device=dev)
+    x = torch.randn((MAIN["k_dim"], MAIN["n_dim"]), generator=gen, device=dev)
+    out = cm.run(plan, a, x)
+    y_ref = a @ x
+    scale = float(y_ref.abs().max())
+    del a, x
+    Bp, bm, R = plan.blocks_per_shard, plan.bm, plan.code.R
+
+    def blocks(survivors):
+        return torch.cat([out[s * Bp * bm:(s + 1) * Bp * bm].reshape(Bp, bm, -1)
+                          for s in survivors], dim=0)
+
+    def plain_recover(survivors):
+        ids = np.concatenate([plan.placement[s] for s in survivors])
+        fplan = fountain.peel_decode_plan(plan.code, ids)
+        return fountain.apply_decode_plan(blocks(survivors), fplan).reshape(R * bm, -1)
+
+    def host_ms(fn, reps=3):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.mean(times))
+
+    n = MAIN["n_shards"]
+    for lost in [None] + list(range(n)):
+        survivors = np.array([s for s in range(n) if s != lost])
+        ids = np.concatenate([plan.placement[s] for s in survivors])
+        fplan = fountain.peel_decode_plan(plan.code, ids)
+        if fplan is None:
+            continue
+        before = lt_decode_plan_cuda.launches
+        y = cm.recover(plan, out, survivors)
+        torch.cuda.synchronize()
+        launches = lt_decode_plan_cuda.launches - before
+        rel = float((y - y_ref).abs().max()) / scale
+        t_cat = host_ms(lambda: blocks(survivors))
+        diff = float((y - plain_recover(survivors)).abs().max()) / scale
+        t_k3 = host_ms(lambda: cm.recover(plan, out, survivors))
+        t_plain = host_ms(lambda: plain_recover(survivors))
+        phase("data-plane-recover", lost="none" if lost is None else lost, method="peel",
+              peeled=fplan.n_peeled, rounds=len(fountain.plan_rounds(fplan)),
+              k3_launches=launches, recover_k3_ms=f"{t_k3:.4f}",
+              recover_plain_ms=f"{t_plain:.4f}", cat_ms=f"{t_cat:.4f}",
+              cat_mb=f"{2 * len(ids) * bm * out.shape[1] * 4 / 1e6:.1f}",
+              routes_rel_diff=f"{diff:.3e}", rel_err=f"{rel:.3e}")
+        if not (diff <= 1e-4 and rel <= 1e-4):
+            raise AssertionError(f"recover with shard {lost} lost: routes differ by {diff:.3e}, "
+                                 f"error {rel:.3e}")
+        if launches != int(fplan.n_peeled > 0):
+            raise AssertionError(f"recover launched K3 {launches} times with shard {lost} lost")
+        del y
+    del out, y_ref
+    torch.cuda.empty_cache()
+
+
 def engine_cpu_vs_card(dev) -> None:
     """The engine on the card against the same engine on the CPU, from one
     set of tables (N=20, R=400, M=256): completion times and efficiencies
@@ -370,16 +467,64 @@ def engine_cpu_vs_card(dev) -> None:
           sym_id="equal", agree="yes")
 
 
+def _block0_loss(code, R: int, K: int):
+    """A loss set with block 0 lost and recovered in a round r that also
+    recovers other entries naming block 0 in padding slots, before a round
+    with such entries: (lost, r)."""
+    import numpy as np
+    from repro_torch.core import fountain
+
+    for n in range(2, R // 2 + 1):
+        for seed in range(50):
+            lost = np.unique(np.r_[0, np.random.default_rng(n + seed).choice(R, n, replace=False)])
+            plan = fountain.peel_decode_plan(code, np.setdiff1d(np.arange(R + K), lost))
+            if plan is None:
+                continue
+            rounds = fountain.plan_rounds(plan)
+            r0 = next(i for i, r in enumerate(rounds) if 0 in r.src)
+            if (rounds[r0].size > 1 and (rounds[r0].nbr_coef == 0).any()
+                    and any((r.nbr_coef == 0).any() for r in rounds[r0 + 1:])):
+                return lost, r0
+    raise AssertionError(f"no block-0 loss pattern at R{R}K{K}")
+
+
+def _scan_block0_loss(code, R: int, K: int):
+    """A loss set with block 0 recovered at step t0 of the plan and a later
+    step of the same round naming block 0 in a padding slot, where the
+    plan's order (fountain.decode's scan) and its rounds differ."""
+    import numpy as np
+    from repro_torch.core import fountain
+
+    for n in range(2, R // 2 + 1):
+        for seed in range(50):
+            lost = np.unique(np.r_[0, np.random.default_rng(n + seed).choice(R, n, replace=False)])
+            plan = fountain.peel_decode_plan(code, np.setdiff1d(np.arange(R + K), lost))
+            if plan is None:
+                continue
+            t0 = list(plan.order_src).index(0)
+            step = fountain.plan_step_rounds(plan)
+            pads0 = ((plan.order_nbr_coef == 0) & (plan.order_nbr_idx == 0)).any(axis=1)
+            if (pads0[t0 + 1:] & (step[t0 + 1:] == step[t0])).any():
+                return lost, plan
+    raise AssertionError(f"no same-round block-0 loss pattern at R{R}K{K}")
+
+
 def check_lt_kernels_against_plain(dev) -> None:
     """K2 and K3 against their plain versions on the card: the reference
     suite's shapes in f32 and bf16, a ragged shape, ±1 weights against the
     0/1 mask, and an inf and a NaN in source block 0 (which padding slots
-    name), compared NaN-equal."""
+    name), compared NaN-equal.  K3 also with block 0 lost and recovered
+    non-finite in a round (that round's other entries stay finite, later
+    rounds' padding slots give NaN) and with the coded buffer one element
+    past a 16-byte boundary; one launch per plan.  Then fountain.decode's
+    peel (K3 on the steps in plan order) against apply_decode_plan, the
+    reference's scan, with block 0 recovered inf before a step of its own
+    round that names it in a padding slot (NaN there in plan order)."""
     import numpy as np
     import torch
     from repro_torch.core import decode, fountain
     from repro_torch.kernels.coded_matmul.ref import lt_encode_ref
-    from repro_torch.kernels.lt_decode import lt_decode, lt_decode_ref
+    from repro_torch.kernels.lt_decode import lt_decode, lt_decode_plan_cuda, lt_decode_ref
     from repro_torch.kernels.lt_encode import lt_encode
 
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -412,25 +557,73 @@ def check_lt_kernels_against_plain(dev) -> None:
             coded = lt_encode_ref(x, torch.as_tensor(code.idx, device=dev),
                                   torch.as_tensor(code.weights, device=dev), bm)
             lost = np.random.default_rng(n_lost).choice(R, size=n_lost, replace=False)
-            for case, keep in (("loss", np.setdiff1d(np.arange(R + K), lost)),
-                               ("nonfinite", np.setdiff1d(np.arange(R + K), lost[lost != 0]))):
+            lost0, r0 = _block0_loss(code, R, K)
+            for case, gone in (("loss", lost), ("nonfinite", lost[lost != 0]),
+                               ("block0-recovered-inf", lost0), ("unaligned", lost)):
+                keep = np.setdiff1d(np.arange(R + K), gone)
                 plan = fountain.peel_decode_plan(code, keep)
                 if plan is None:
                     raise AssertionError(f"the check plan stalls at R{R}K{K}")
+                rounds = fountain.plan_rounds(plan)
                 crx = coded.reshape(R + K, bm, cols)[torch.as_tensor(keep, device=dev)]
                 crx = crx.reshape(-1, cols).contiguous()
                 if case == "nonfinite":  # rows of source 0, which padding slots name
                     crx[min(2, bm - 1), 1], crx[0, 0] = torch.inf, torch.nan
+                if case == "block0-recovered-inf":  # the coded block that recovers block 0
+                    cpos = int(rounds[r0].coded[list(rounds[r0].src).index(0)])
+                    crx[cpos * bm + bm - 1, cols - 1] = torch.inf
+                if case == "unaligned":
+                    buf = torch.empty(crx.numel() + 1, dtype=dt, device=dev)
+                    buf[1:] = crx.reshape(-1)
+                    crx = buf[1:].view(-1, cols)
+                before = lt_decode_plan_cuda.launches
                 out, ref = lt_decode(crx, plan, bm=bm), lt_decode_ref(crx, plan, bm=bm)
                 torch.cuda.synchronize()
+                launches = lt_decode_plan_cuda.launches - before
                 err, tol = nan_equal_err(out, ref)
                 phase("k3-check", case=f"{case}-{tag}",
-                      shape=f"R{R}K{K}bm{bm}c{cols}lost{n_lost}",
-                      rounds=len(fountain.plan_rounds(plan)), max_abs_err=f"{err:.3e}",
-                      tol=f"{tol:.3e}")
+                      shape=f"R{R}K{K}bm{bm}c{cols}lost{len(gone)}", rounds=len(rounds),
+                      launches=launches, max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}",
+                      nan=int(torch.isnan(ref).sum()))
                 if not (out.shape == ref.shape and err <= tol):
                     raise AssertionError(f"K3 disagrees with its plain version: {case} "
                                          f"{tag} R{R}K{K}bm{bm}c{cols}")
+                if launches != (1 if rounds else 0):
+                    raise AssertionError(f"K3 launched {launches} times for one plan")
+                if case == "block0-recovered-inf":
+                    at = ref.view(R, bm, cols)[:, bm - 1, cols - 1]
+                    if not (all(bool(torch.isfinite(at[int(s)])) for s in rounds[r0].src if s)
+                            and any(bool(torch.isnan(at[int(s)]))
+                                    for r in rounds[r0 + 1:] for s in r.src)):
+                        raise AssertionError("the block-0 case did not give round r0 finite "
+                                             "entries and NaN after it in the plain version")
+    for R, K, bm, cols, _n in DEC_SHAPES:
+        code = decode.make_decoder_code(R, K, seed=R + K, d_max=8)
+        x = torch.randn((R * bm, cols), generator=gen, device=dev)
+        coded = lt_encode_ref(x, torch.as_tensor(code.idx, device=dev),
+                              torch.as_tensor(code.weights, device=dev), bm)
+        lost, plan = _scan_block0_loss(code, R, K)
+        keep = np.setdiff1d(np.arange(R + K), lost)
+        rx = coded.reshape(R + K, bm, cols)[torch.as_tensor(keep, device=dev)].contiguous()
+        rx[int(plan.order_coded[list(plan.order_src).index(0)]), bm - 1, cols - 1] = torch.inf
+        before = lt_decode_plan_cuda.launches
+        out, method = fountain.decode(rx, code, keep)
+        ref = fountain.apply_decode_plan(rx, plan)
+        torch.cuda.synchronize()
+        launches = lt_decode_plan_cuda.launches - before
+        rounds_nan = torch.isnan(lt_decode_ref(rx.view(-1, cols), plan, bm=bm))
+        err, tol = nan_equal_err(out, ref)
+        phase("k3-check", case="scan-block0-recovered-inf-float32",
+              shape=f"R{R}K{K}bm{bm}c{cols}lost{len(lost)}", steps=plan.n_peeled,
+              launches=launches, max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}",
+              nan=int(torch.isnan(ref).sum()), nan_by_rounds=int(rounds_nan.sum()))
+        if not (method == "peel" and out.shape == ref.shape and err <= tol):
+            raise AssertionError(f"fountain.decode on K3 disagrees with apply_decode_plan: "
+                                 f"R{R}K{K}bm{bm}c{cols}")
+        if launches != 1:
+            raise AssertionError(f"fountain.decode launched K3 {launches} times for one plan")
+        if torch.equal(rounds_nan.view(ref.shape), torch.isnan(ref)):
+            raise AssertionError("the scan case does not tell plan order from the rounds")
 
 
 def rateless_data_plane(dev) -> dict:
@@ -438,16 +631,19 @@ def rateless_data_plane(dev) -> dict:
     production-ish shapes, through the entry points a user calls: encode
     the sources with the decoder's pool code (K2, ``lt_encode_code``), drop
     the sources of kernel_bench's loss draw, peel the received set back
-    (K3, ``lt_decode_code``, one launch per round).  Then each kernel, its
+    (K3, ``lt_decode_code``, one launch for the plan).  Then each kernel, its
     plain version and its library yardstick are timed on the same inputs,
     beside the bound of the same work.  Returns the per-kernel numbers
     summed over the two shapes, with K2's and K3's launches on the path."""
+    import dataclasses as dc
+
     import numpy as np
     import torch
     from repro_torch.core import decode, fountain
     from repro_torch.kernels.coded_matmul.ref import lt_encode_ref
-    from repro_torch.kernels.lt_decode import (lt_decode_code, lt_decode_ref,
-                                               lt_decode_round_cuda, peel_round_ref)
+    from repro_torch.kernels.lt_decode import (lt_decode, lt_decode_code, lt_decode_plan_cuda,
+                                               lt_decode_ref, peel_round_ref, plan_program,
+                                               read_program)
     from repro_torch.kernels.lt_encode import lt_encode_code, lt_encode_cuda
 
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -458,7 +654,7 @@ def rateless_data_plane(dev) -> dict:
         lost = np.random.default_rng(R).choice(R, size=n_lost, replace=False)
         keep = np.setdiff1d(np.arange(R + K), lost)
         # The main path, counted.
-        lt_encode_cuda.launches = lt_decode_round_cuda.launches = 0
+        lt_encode_cuda.launches = lt_decode_plan_cuda.launches = 0
         coded = lt_encode_code(a, code)
         crx = coded.view(R + K, bm, cols)[torch.as_tensor(keep, device=dev)].view(-1, cols)
         plan = fountain.peel_decode_plan(code, keep)
@@ -470,17 +666,18 @@ def rateless_data_plane(dev) -> dict:
             dec, method = lt_decode_code(crx, code, keep), "peel"
         torch.cuda.synchronize()
         launches = dict(lt_encode=lt_encode_cuda.launches,
-                        lt_decode=lt_decode_round_cuda.launches)
+                        lt_decode=lt_decode_plan_cuda.launches)
         rel = float((dec - a).abs().max()) / float(a.abs().max())
         rounds = fountain.plan_rounds(plan) if plan is not None else []
         phase("rateless-data-plane", R=R, K=K, bm=bm, cols=cols, lost=n_lost, method=method,
-              rounds=len(rounds), peeled=plan.n_peeled if plan is not None else 0,
+              rounds=len(rounds), round_sizes=",".join(str(r.size) for r in rounds),
+              peeled=plan.n_peeled if plan is not None else 0,
               k2_launches=launches["lt_encode"], k3_launches=launches["lt_decode"],
               rel_err=f"{rel:.3e}", limit=f"{RATELESS_LIMIT:.0e}")
         if not (dec.shape == a.shape and rel <= RATELESS_LIMIT):
             raise AssertionError(f"rateless round trip R{R}: rel. error {rel:.3e}")
-        if launches["lt_encode"] != 1 or launches["lt_decode"] != len(rounds):
-            raise AssertionError(f"rateless path launches {launches} for {len(rounds)} rounds")
+        if launches["lt_encode"] != 1 or launches["lt_decode"] != (1 if rounds else 0):
+            raise AssertionError(f"rateless path launches {launches} for one plan")
         blk = bm * cols * a.element_size()
 
         # K2 alone against its plain version at this shape (every parity
@@ -523,29 +720,31 @@ def rateless_data_plane(dev) -> dict:
         del coded, G
         torch.cuda.empty_cache()
 
-        # K3: the rounds alone against the plain decode of the received rows
-        # (the round trip's output too), then the rounds' time (rerunning
-        # them rewrites the same blocks), the rounds with every entry skipped
-        # (what a round costs besides its work: the marks pass and the
-        # launches), the plain rounds, and the library form of each round
-        # (addmm + mul_).
+        # K3: the plan's one launch alone, its program built once outside the
+        # timed loop, against the plain decode of the received rows (the
+        # round trip's output too); rerunning it rewrites the same blocks.
+        # Then by the profiler, with the L2 as the previous launch left it (it
+        # must see that kernel alone: no marks pass) and cold,
+        # an empty plan's launch (every entry skipped: what a launch costs
+        # besides its work), one whole lt_decode call on the host's clock
+        # (schedule, copies, direct fills and the launch, synchronised), the
+        # plain rounds, and the library form of each round (addmm + mul_).
         k3 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
                   bound_by="bytes")
         if rounds:
             plain = lt_decode_ref(crx, plan, bm=bm)  # from the received rows alone
-            src = plain.clone()  # its direct fills; the blocks the rounds recover zeroed
-            src.view(R, bm, cols)[torch.as_tensor(plan.order_src, device=dev).long()] = 0
+            src = plain.clone()  # its direct fills; the blocks the plan recovers NaN
+            src.view(R, bm, cols)[torch.as_tensor(plan.order_src, device=dev).long()] = torch.nan
             coded3 = crx.view(len(keep), bm, cols)
-            tabs = [tuple(torch.as_tensor(np.ascontiguousarray(v), device=dev)
-                          for v in (rnd.coded, rnd.src, rnd.nbr_idx, rnd.nbr_coef,
-                                    1.0 / rnd.pivot))
-                    for rnd in rounds]  # int32 and float32 tables of each round
+            words = plan_program(plan, len(keep))
+            prog = torch.as_tensor(words, device=dev)
+            empty = torch.as_tensor(plan_program(dc.replace(
+                plan, order_coded=np.full_like(plan.order_coded, -1)), len(keep)), device=dev)
 
-            def k3_rounds():
-                for cpos, dst, nidx, nw, ip in tabs:
-                    lt_decode_round_cuda(crx, src, cpos, dst, nidx, nw, ip, bm)
+            def k3_plan():
+                lt_decode_plan_cuda(crx, src, prog, bm)
 
-            k3_rounds()
+            k3_plan()
             k3_err = max(float((src - plain).abs().max()), float((dec - plain).abs().max()))
             k3_tol = tolerance(torch.float32, plain)
             if not k3_err <= k3_tol:
@@ -558,60 +757,86 @@ def rateless_data_plane(dev) -> dict:
                         s3, coded3, rnd, bm=bm)
 
             dense = []
-            for rnd, (cpos, dst, nidx, nw, ip) in zip(rounds, tabs):
+            for rnd in rounds:
                 W = torch.zeros((rnd.size, R), device=dev)
-                W.scatter_add_(1, nidx.long(), nw)  # padding adds 0 at column 0
-                dense.append((coded3[cpos.long()].reshape(rnd.size, -1), W, ip[:, None]))
+                W.scatter_add_(1, torch.as_tensor(rnd.nbr_idx, device=dev).long(),
+                               torch.as_tensor(rnd.nbr_coef, device=dev))  # padding adds 0
+                dense.append((coded3[torch.as_tensor(rnd.coded, device=dev).long()].reshape(
+                    rnd.size, -1), W, torch.as_tensor(1.0 / rnd.pivot, device=dev)[:, None]))
             s2 = src.view(R, bm * cols)
 
             def library_rounds():
                 for c_sel, W, ip in dense:
                     torch.addmm(c_sel, W, s2, alpha=-1).mul_(ip)
 
-            skipped = [(torch.full_like(cpos, -1), *rest) for cpos, *rest in tabs]
-
-            def k3_skipped():
-                for t in skipped:
-                    lt_decode_round_cuda(crx, src, *t, bm)
-
-            k3_ms = time_ms(k3_rounds, 20)
-            k3_fixed = time_ms(k3_skipped, 20) / len(rounds)
-            t0 = time.perf_counter()  # the host's share: enqueueing alone, no sync
-            for _ in range(20):
-                k3_skipped()
-            k3_enqueue = (time.perf_counter() - t0) * 1e3 / 20 / len(rounds)
-            torch.cuda.synchronize()
+            k3_ms = time_ms(k3_plan, 20)
+            steps = kernel_device_ms(k3_plan, 20, dict(k3="lt_decode_plan_kernel"))
+            if steps["other"] > 0:
+                raise AssertionError("K3's plan launch ran kernels besides its own")
+            # The same after each launch finds the L2 cold: 100 MB (2x the L2)
+            # written elsewhere in between, as the inputs' first read would.
+            flush = torch.empty(25 * 2 ** 20, device=dev)
+            cold = kernel_device_ms(lambda: (flush.zero_(), k3_plan()), 10,
+                                    dict(k3="lt_decode_plan_kernel"))
+            del flush
+            k3_empty = time_ms(lambda: lt_decode_plan_cuda(crx, src, empty, bm), 20)
+            host = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lt_decode(crx, plan, bm=bm)
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t0) * 1e3)
             k3_plain = time_ms(plain_rounds, 3)
             k3_lib = time_ms(library_rounds, 20)
             n_nbr = sum(int((rnd.nbr_coef != 0).sum()) for rnd in rounds)
+            # The old per-round count: every distinct block a round reads, each
+            # entry written, and each entry's tables.
             read = {("c", int(c)) for rnd in rounds for c in rnd.coded}
             read |= {("s", int(s)) for rnd in rounds
                      for s in rnd.nbr_idx[rnd.nbr_coef != 0]}
-            # cpos, dst and inv_pivot, and an int32 index and a float32
-            # weight per slot, for each peeled entry.
-            k3_bytes = (len(read) + plan.n_peeled) * blk + (
+            round_bytes = (len(read) + plan.n_peeled) * blk + (
                 12 + 8 * plan.order_nbr_idx.shape[1]) * plan.n_peeled
+            # The plan count: the inputs read once (each entry's coded block,
+            # the direct-filled blocks its neighbours and padding lists name)
+            # and each recovered block written once; a block the launch
+            # recovers and reads again is an intermediate.  Plus the program.
+            direct = set(plan.direct_src.tolist())
+            named = {int(b) for r in read_program(words) for b in r.padding}
+            named |= {s for kind, s in read if kind == "s"}
+            inputs = len({c for kind, c in read if kind == "c"}) + len(named & direct)
+            k3_bytes = (inputs + plan.n_peeled) * blk + words.size * 4
             k3_ops = 2.0 * n_nbr * bm * cols + plan.n_peeled * bm * cols
             k3_bound = max(k3_bytes / HBM_BYTES_PER_S, k3_ops / FP32_FLOPS) * 1e3
+            round_bound = max(round_bytes / HBM_BYTES_PER_S, k3_ops / FP32_FLOPS) * 1e3
             k3 = dict(ms=k3_ms, plain_ms=k3_plain, library_ms=k3_lib, bound_ms=k3_bound,
-                      max_abs_err=k3_err, bound_by="bytes"
+                      round_bound_ms=round_bound, max_abs_err=k3_err, bound_by="bytes"
                       if k3_bytes / HBM_BYTES_PER_S >= k3_ops / FP32_FLOPS else "operations")
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            ctas = -(-bm * cols // (4 * 256))
             phase("k3-rateless-shape", R=R, n_rx=len(keep), bm=bm, cols=cols,
                   rounds=len(rounds), peeled=plan.n_peeled, nbr_reads=n_nbr,
-                  k3_ms=f"{k3_ms:.4f}", skipped_round_ms=f"{k3_fixed:.4f}",
-                  skipped_round_enqueue_ms=f"{k3_enqueue:.4f}",
-                  bound_ms=f"{k3_bound:.4f}",
-                  share_of_bound=f"{k3_bound / k3_ms:.3f}", plain_ms=f"{k3_plain:.4f}",
-                  addmm_mul_ms=f"{k3_lib:.4f}", bytes=k3_bytes, max_abs_err=f"{k3_err:.3e}",
+                  program_words=words.size, ctas=ctas, ctas_per_sm=f"{ctas / sms:.2f}",
+                  k3_ms=f"{k3_ms:.4f}", k3_device_ms=f"{steps['k3']:.4f}",
+                  k3_cold_device_ms=f"{cold['k3']:.4f}",
+                  empty_plan_ms=f"{k3_empty:.4f}",
+                  lt_decode_host_ms=f"{np.mean(host):.4f}",
+                  lt_decode_host_min_ms=f"{min(host):.4f}",
+                  bound_ms=f"{k3_bound:.4f}", share_of_bound=f"{k3_bound / k3_ms:.3f}",
+                  round_bound_ms=f"{round_bound:.4f}", bytes=k3_bytes, round_bytes=round_bytes,
+                  hbm_tbps=f"{k3_bytes / k3_ms / 1e9:.3f}", plain_ms=f"{k3_plain:.4f}",
+                  addmm_mul_ms=f"{k3_lib:.4f}", max_abs_err=f"{k3_err:.3e}",
                   tol=f"{k3_tol:.3e}")
-            del src, plain, dense, tabs, skipped
+            del src, plain, dense, prog, empty
         runs.append(dict(launches=launches, lt_encode=k2, lt_decode=k3))
         del a, crx, dec
         torch.cuda.empty_cache()
     out = {}
     for name in ("lt_encode", "lt_decode"):
-        tot = {k: sum(r[name][k] for r in runs)
-               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        tot = {k: sum(r[name].get(k, 0.0) for r in runs)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms", "round_bound_ms")}
+        if name == "lt_encode":
+            tot.pop("round_bound_ms")
         tot["max_abs_err"] = max(r[name]["max_abs_err"] for r in runs)
         tot["bound_by"] = runs[0][name]["bound_by"]
         tot["launches"] = sum(r["launches"][name] for r in runs)
@@ -1134,18 +1359,23 @@ def main() -> int:
     main_shape = kernel_at_main_shape(dev)
     torch.cuda.empty_cache()
 
-    # 5.-6. The main path through the entry points a user calls.
-    coded_matmul_cuda.launches = 0
+    # 5.-6. The main path through the entry points a user calls: K1 for the
+    # helpers' products, K3 for the collector's peeling recoveries.
+    coded_matmul_cuda.launches = k3.lt_decode_plan_cuda.launches = 0
     data = quickstart.coded_offload(device=dev, **MAIN)
     torch.cuda.synchronize()
     launches_data = coded_matmul_cuda.launches
+    launches_collector = k3.lt_decode_plan_cuda.launches
     worst = max(data["rel_err"])
     phase("data-plane", shape=f"{MAIN['rows']}x{MAIN['k_dim']}x{MAIN['n_dim']}",
           survivor_sets=len(data["rel_err"]), k1_launches=launches_data,
-          worst_rel_err=f"{worst:.3e}",
+          k3_launches=launches_collector, worst_rel_err=f"{worst:.3e}",
           rel_errs=",".join(f"{e:.3e}" for e in data["rel_err"]))
     if launches_data < 1:
         raise AssertionError("the data plane did not launch K1")
+    if launches_collector != peeling_losses():
+        raise AssertionError(f"the collector launched K3 {launches_collector} times for "
+                             f"{peeling_losses()} peeling recoveries")
     if not worst <= 1e-4:
         raise AssertionError(f"recovery error {worst:.3e} > 1e-4")
 
@@ -1162,12 +1392,14 @@ def main() -> int:
         raise AssertionError("T_ccp > 1.10 T_best")
     if not ctrl["efficiency"] > 0.99:
         raise AssertionError("mean CCP efficiency <= 0.99")
+    collector_times(dev)
     engine_cpu_vs_card(dev)
 
     # 7.-8. The rateless path: the LT payload round trip on K2 and K3 (their
     # launch counts are reset inside, just before each shape's round trip),
     # then the rateless control plane with the decoder in the loop.
     lt = rateless_data_plane(dev)
+    lt["lt_decode"]["launches"] += launches_collector  # K3 on both paths
     rateless_control_plane(dev)
 
     # 9.-11. LM serving: K4 against its plain version, K4 at the serving

@@ -40,6 +40,7 @@ __all__ = [
     "DecodePlan",
     "PlanRound",
     "peel_decode_plan",
+    "plan_step_rounds",
     "plan_rounds",
     "apply_decode_plan",
     "decode",
@@ -436,6 +437,30 @@ class PlanRound:
         return int(self.src.shape[0])
 
 
+def plan_step_rounds(plan: DecodePlan) -> np.ndarray:
+    """The round of each peeled step of ``plan`` (see :func:`plan_rounds`),
+    (T,) int64, computed over all steps at once: each pass gives every step
+    ``1 + max(round of the steps that recovered its neighbours)``, direct
+    sources counting 0, until nothing changes.  A plan recovers each source
+    once, as :func:`peel_decode_plan`'s do."""
+    T = plan.n_peeled
+    producer = np.full(plan.R, T, dtype=np.int64)  # T: never recovered
+    producer[plan.order_src[::-1]] = np.arange(T - 1, -1, -1)
+    producer[plan.direct_src] = -1
+    prod = np.where(plan.order_nbr_coef != 0, producer[plan.order_nbr_idx], -1)
+    assert (prod < np.arange(T)[:, None]).all(), \
+        "plan step depends on an unrecovered source"
+    prod[prod < 0] = T  # the slot of direct sources and padding, round 0
+    ext = np.zeros(T + 1, dtype=np.int64)
+    ext[:T] = 1
+    while T:
+        step = 1 + ext[prod].max(axis=1, initial=0)
+        if np.array_equal(step, ext[:T]):
+            break
+        ext[:T] = step
+    return ext[:T]
+
+
 def plan_rounds(plan: DecodePlan) -> list:
     """Levelize a sequential :class:`DecodePlan` into parallel rounds.
 
@@ -446,17 +471,7 @@ def plan_rounds(plan: DecodePlan) -> list:
     the round count is the decode's critical path, typically O(log R) deep
     versus the O(R) sequential scan of :func:`apply_decode_plan`.
     """
-    depth = np.full(plan.R, -1, dtype=np.int64)
-    depth[plan.direct_src] = 0
-    T = plan.n_peeled
-    step_round = np.zeros(T, dtype=np.int64)
-    for t in range(T):
-        nbrs = plan.order_nbr_idx[t][plan.order_nbr_coef[t] != 0]
-        d = 1 + (int(depth[nbrs].max()) if nbrs.size else 0)
-        assert nbrs.size == 0 or depth[nbrs].min() >= 0, \
-            "plan step depends on an unrecovered source"
-        depth[plan.order_src[t]] = d
-        step_round[t] = d
+    step_round = plan_step_rounds(plan)
     rounds = []
     for d in range(1, int(step_round.max(initial=0)) + 1):
         sel = np.flatnonzero(step_round == d)
@@ -508,11 +523,21 @@ def decode(
     the real generator rows on the data's device — always succeeds when the
     received rows span the source space (rank-checked on the host, which
     also guarantees the full-rank tall system CUDA's ``gels`` driver needs).
+    On a CUDA tensor the peel is one launch of the LT decode kernel (K3,
+    :func:`repro_torch.kernels.lt_decode.lt_decode` with ``scan=True``, the
+    steps in plan order as :func:`apply_decode_plan` takes them) over the
+    blocks flattened to rows, and a type that kernel does not take (float32,
+    bfloat16) raises; a CPU tensor takes :func:`apply_decode_plan`.
     Returns (blocks, method).
     """
     plan = peel_decode_plan(code, received_ids)
     if plan is not None:
-        return apply_decode_plan(coded_rx, plan), "peel"
+        if not coded_rx.is_cuda:
+            return apply_decode_plan(coded_rx, plan), "peel"
+        from ..kernels.lt_decode import lt_decode  # its ops module imports this one
+        rest = coded_rx.shape[1:]
+        flat = coded_rx.reshape(coded_rx.shape[0], -1)  # a view of contiguous blocks
+        return lt_decode(flat, plan, bm=1, scan=True).view((plan.R,) + rest), "peel"
     G = code.dense_generator()[np.asarray(received_ids)]  # (n_rx, R)
     if np.linalg.matrix_rank(G) < code.R:
         raise ValueError("received blocks do not span the source space")

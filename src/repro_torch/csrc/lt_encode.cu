@@ -41,9 +41,7 @@
 // read again).  Where the columns are not a multiple of the vector or a
 // pointer is not 16-byte aligned, the same loop runs on single elements with
 // the ragged edge masked, so the caller pads nothing (the TPU path pads
-// columns to bc = 512).  The loop is tiles::gather_accumulate
-// (block_io.cuh), which lt_decode.cu shares; K2 takes it with a zero start,
-// sign +1, scale 1, read-only loads and streaming stores.
+// columns to bc = 512).
 //
 // Non-finite input: the plain version multiplies padding slots too (0 * inf
 // = NaN).  The launch first marks the source rows that padding slots reach
@@ -65,6 +63,63 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int ROWS = 2;  // rows of a coded block per CTA: independent loads per neighbour
+
+// Each thread owns VEC consecutive columns from c0 (16 bytes) in each of the
+// ROWS rows from row0 of a bm-row block:
+//
+//     out[row] = sum_j s_w[j] * a[s_src[j]][row]
+//
+// in fp32 over the nnz compacted neighbours, ROWS independent read-only loads
+// each.  In a row marked in s_bad it also adds 0 * a[idx[j]][row] for the
+// row's padding slots (zero weight, index in [0, R)), as the plain version
+// does (0 * inf = NaN).  a and out point at block 0 of their buffers (row
+// stride cols).  VECTOR: 16-byte loads and stores (cols a multiple of VEC,
+// 16-byte aligned pointers), else single elements with the ragged edge
+// masked.  The output is written with streaming stores: it is not read again.
+template <typename T, bool VECTOR>
+__device__ __forceinline__ void encode_rows(const T* __restrict__ a, T* out, const int* s_src,
+                                            const float* s_w, int nnz, const uint8_t* s_bad,
+                                            const int32_t* __restrict__ idx,
+                                            const float* __restrict__ w, int d_max, int R,
+                                            int bm, int row0, int cols, int c0) {
+    constexpr int VEC = 16 / sizeof(T);
+    const int left = cols - c0;
+    float acc[ROWS][VEC];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[r][i] = 0.f;
+    for (int j = 0; j < nnz; ++j) {
+        const float wj = s_w[j];
+        const T* base = a + ((size_t)s_src[j] * bm + row0) * cols + c0;
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+            if (row0 + r >= bm) break;
+            float v[VEC];
+            if (VECTOR) tiles::load_vec<T, VEC, true>(v, base + (size_t)r * cols);
+            else tiles::load_edge<T, VEC>(v, base + (size_t)r * cols, left);
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) acc[r][i] = fmaf(wj, v[i], acc[r][i]);
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+        const int row = row0 + r;
+        if (row >= bm) break;
+        if (s_bad[r]) {  // rare: the padding slots' 0 * a terms of this row
+            for (int j = 0; j < d_max; ++j) {
+                const int s = idx[j];
+                if (w[j] != 0.f || s < 0 || s >= R) continue;
+                float v[VEC];
+                tiles::load_edge<T, VEC>(v, a + ((size_t)s * bm + row) * cols + c0, left);
+#pragma unroll
+                for (int i = 0; i < VEC; ++i) acc[r][i] += 0.f * v[i];
+            }
+        }
+        tiles::store_row_piece<T, VEC, true>(out + (size_t)row * cols + c0, acc[r], VECTOR,
+                                             left);
+    }
+}
 
 template <typename T, bool VECTOR>
 __global__ void __launch_bounds__(THREADS)
@@ -89,9 +144,8 @@ lt_encode_kernel(const T* __restrict__ a, const int32_t* __restrict__ idx,
     }
     const int nnz = tiles::compact_neighbours(idx_b, w_b, d_max, R, s_src, s_w, &s_nnz);
     if (c0 >= cols) return;
-    tiles::gather_accumulate<T, ROWS, VECTOR, true, true>(
-        nullptr, a, out + (size_t)b * bm * cols, s_src, s_w, nnz, s_bad, idx_b, w_b, d_max, R,
-        1.f, 1.f, bm, row0, cols, c0);
+    encode_rows<T, VECTOR>(a, out + (size_t)b * bm * cols, s_src, s_w, nnz, s_bad, idx_b, w_b,
+                           d_max, R, bm, row0, cols, c0);
 }
 
 template <typename T>

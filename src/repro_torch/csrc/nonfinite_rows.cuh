@@ -1,11 +1,11 @@
-// Non-finite rows reached through padding slots, shared by the LT kernels.
+// Non-finite rows reached through padding slots, shared by K1 and K2 (K3
+// keeps one bit per padding block and element instead: lt_decode.cu).
 //
-// The plain versions of K1-K3 multiply every neighbour slot by its weight,
+// The plain versions of K1 and K2 multiply every neighbour slot by its weight,
 // padding slots (weight 0) included, so a NaN or inf in a source row that a
 // padding slot names turns into 0 * inf = NaN in their result.  The kernels
-// skip zero-weight slots (a low-degree row reads only its real neighbours,
-// and K3 must never read a padding slot's block, which it may be writing in
-// the same launch).  To give the plain versions' result on such input they
+// skip zero-weight slots (a low-degree row reads only its real neighbours).
+// To give the plain versions' result on such input they
 // first mark, per source row, "a padding slot names this block and the row
 // holds a non-finite value", and redo only the marked rows' padding terms.
 //

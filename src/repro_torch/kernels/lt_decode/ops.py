@@ -3,13 +3,14 @@
 
 ``lt_decode`` takes the received coded blocks and a peeling
 :class:`~repro_torch.core.fountain.DecodePlan`.  On CUDA tensors it fills
-the degree-1 (direct) receipts with torch indexing (a scaled gather, not a
-kernel), then makes one :func:`~.kernel.lt_decode_round_cuda` launch per
-:func:`~repro_torch.core.fountain.plan_rounds` level, each writing straight
-into the source buffer.  The schedule is built on the host before the first
-launch and copied to the card in one piece, so the rounds need no host
-synchronisation between them.  On CPU tensors it runs the plain version
-``ref.lt_decode_ref``.
+the degree-1 (direct) receipts with torch indexing (a gather, not a
+kernel), then makes one :func:`~.kernel.lt_decode_plan_cuda` launch that
+walks every peeled step of the plan in round order, writing straight into
+the source buffer.  The schedule (``schedule.plan_program``, or
+``schedule.scan_program`` for ``scan=True``) and the direct fills' indices
+are built on the host and copied to the card in one piece.  On CPU tensors
+it runs the plain version ``ref.lt_decode_ref`` (``scan=True``:
+``fountain.apply_decode_plan``).
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ import numpy as np
 import torch
 
 from ...core import fountain
-from .kernel import lt_decode_round_cuda
+from .. import _nvcc
+from . import schedule
+from .kernel import lt_decode_plan_cuda
 from .ref import lt_decode_ref
 
 
@@ -30,13 +33,24 @@ def lt_decode(
     *,
     bm: int,
     use_kernel: Optional[bool] = None,
+    scan: bool = False,
 ) -> torch.Tensor:
     """Recover the source rows from received coded rows via peeling.
 
     coded_rx: (n_rx * bm, n_cols), the received coded blocks in the order of
     the ``received_ids`` the plan was built from.  Returns (R * bm, n_cols)
     in coded_rx's type.  ``use_kernel`` defaults to the device, as in
-    :func:`repro_torch.kernels.lt_encode.lt_encode`.
+    :func:`repro_torch.kernels.lt_encode.lt_encode`; a CUDA tensor of a type
+    the kernel does not take (float32, bfloat16) raises.
+
+    The default runs the plan's rounds as the reference's round kernel
+    does: a padding slot (zero weight) reads its block as it stood before
+    the entry's round, so a non-finite value there gives NaN only from the
+    next round on.  ``scan=True`` runs the steps in plan order as
+    :func:`~repro_torch.core.fountain.apply_decode_plan` (the reference's
+    ``fountain.decode``) does: a padding slot reads its block as the
+    previous step left it.  The two differ only where a padding-named block
+    is non-finite.
     """
     if coded_rx.shape[0] % bm:
         raise ValueError(f"coded_rx rows {coded_rx.shape[0]} not divisible by bm={bm}")
@@ -47,10 +61,16 @@ def lt_decode(
             f"use_kernel={use_kernel} but coded_rx is on {coded_rx.device}: the "
             "kernel runs on CUDA tensors and the plain version on CPU tensors")
     if not use_kernel:
+        if scan:
+            n_cols = coded_rx.shape[1]
+            return fountain.apply_decode_plan(coded_rx.reshape(-1, bm * n_cols),
+                                              plan).view(plan.R * bm, n_cols)
         return lt_decode_ref(coded_rx, plan, bm=bm)
+    if coded_rx.dtype not in _nvcc.DTYPE_CODE:
+        raise ValueError(f"lt_decode on the card takes {list(_nvcc.DTYPE_CODE)}; "
+                         f"got {coded_rx.dtype}")
     R, n_cols, dev = plan.R, coded_rx.shape[1], coded_rx.device
     n_rx = coded_rx.shape[0] // bm
-    rounds = fountain.plan_rounds(plan)
     for name, v, hi in (("direct_coded", plan.direct_coded, n_rx),
                         ("direct_src", plan.direct_src, R),
                         ("order_coded", plan.order_coded, n_rx),
@@ -58,31 +78,31 @@ def lt_decode(
                         ("order_nbr_idx", plan.order_nbr_idx, R)):
         if v.size and (v.min() < 0 or v.max() >= hi):
             raise ValueError(f"plan.{name} indexes outside [0, {hi})")
+    if plan.order_nbr_idx.shape[1] > _nvcc.MAX_D:
+        raise ValueError(f"d_max={plan.order_nbr_idx.shape[1]} exceeds the kernel's "
+                         f"{_nvcc.MAX_D} slots")
     coded = coded_rx.contiguous()
-    src = torch.zeros((R * bm, n_cols), dtype=coded.dtype, device=dev)
-    if plan.direct_src.size:
-        # Degree-1 receipts are plain scaled copies: a gather, not a kernel.
-        dcoef = torch.as_tensor(plan.direct_coef, device=dev).to(src.dtype)[:, None, None]
-        src.view(R, bm, n_cols)[torch.as_tensor(plan.direct_src, device=dev).long()] = (
-            coded.view(n_rx, bm, n_cols)[torch.as_tensor(plan.direct_coded, device=dev).long()]
-            / dcoef)
-    if not rounds:
-        return src
-    # Every round's schedule in one host-to-device copy per field.
-    cat = lambda f: np.concatenate([getattr(r, f) for r in rounds])  # noqa: E731
-    ints = torch.as_tensor(np.concatenate(
-        [cat("coded"), cat("src"), cat("nbr_idx").ravel()]).astype(np.int32), device=dev)
-    floats = torch.as_tensor(np.concatenate(
-        [cat("nbr_coef").ravel(), 1.0 / cat("pivot")]).astype(np.float32), device=dev)
-    T, d_max = plan.n_peeled, plan.order_nbr_idx.shape[1]
-    cpos, dst, idx = ints[:T], ints[T:2 * T], ints[2 * T:].view(T, d_max)
-    w, inv_pivot = floats[:T * d_max].view(T, d_max), floats[T * d_max:]
-    s0 = 0
-    for rnd in rounds:
-        s1 = s0 + rnd.size
-        lt_decode_round_cuda(coded, src, cpos[s0:s1], dst[s0:s1], idx[s0:s1],
-                             w[s0:s1], inv_pivot[s0:s1], bm)
-        s0 = s1
+    # Every block is written below when the plan recovers all R, so the
+    # buffer needs no zero fill then.
+    covered = np.union1d(plan.direct_src, plan.order_src).size == R
+    src = (torch.empty if covered else torch.zeros)((R * bm, n_cols), dtype=coded.dtype,
+                                                     device=dev)
+    words = (schedule.scan_program if scan else schedule.plan_program)(plan, n_rx)
+    D = plan.direct_src.size
+    # The program, then the direct fills' source and coded positions, in one
+    # host-to-device copy (the program's words first, so it starts aligned).
+    host = np.concatenate([words.view(np.int64),
+                           plan.direct_src.astype(np.int64), plan.direct_coded.astype(np.int64)])
+    ints = torch.as_tensor(host, device=dev)
+    if D:
+        # Degree-1 receipts are scaled copies: a gather, not a kernel.
+        dsrc, dcoded = ints[words.size // 2:words.size // 2 + D], ints[words.size // 2 + D:]
+        got = coded.view(n_rx, bm, n_cols).index_select(0, dcoded)
+        if not (plan.direct_coef == 1).all():  # x / 1 == x: skip the pass
+            got /= torch.as_tensor(plan.direct_coef, device=dev).to(src.dtype)[:, None, None]
+        src.view(R, bm, n_cols).index_copy_(0, dsrc, got)
+    if words.size:
+        lt_decode_plan_cuda(coded, src, ints[:words.size // 2].view(torch.int32), bm)
     return src
 
 

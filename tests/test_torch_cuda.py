@@ -78,8 +78,8 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(card):
 
 from repro_torch.core import decode as dec_pt  # noqa: E402
 from repro_torch.kernels.coded_matmul.ref import lt_encode_ref  # noqa: E402
-from repro_torch.kernels.lt_decode import (lt_decode, lt_decode_ref,  # noqa: E402
-                                           lt_decode_round_cuda)
+from repro_torch.kernels.lt_decode import (lt_decode, lt_decode_plan_cuda,  # noqa: E402
+                                           lt_decode_ref, lt_decode_round_cuda)
 from repro_torch.kernels.lt_encode import lt_encode, lt_encode_cuda  # noqa: E402
 
 # The reference suite's test_lt_encode_sweep shapes (R, K, bm, cols), a
@@ -134,11 +134,11 @@ def test_lt_decode_kernel_matches_plain_version(card, R, K, bm, cols, n_lost, dt
     plan = fountain.peel_decode_plan(code, keep)
     assert plan is not None
     crx = coded.reshape(R + K, bm, cols)[torch.as_tensor(keep, device=card)].reshape(-1, cols)
-    before = lt_decode_round_cuda.launches
+    before = lt_decode_plan_cuda.launches
     out = lt_decode(crx, plan, bm=bm)
     ref = lt_decode_ref(crx, plan, bm=bm)
     torch.cuda.synchronize()
-    assert lt_decode_round_cuda.launches == before + len(fountain.plan_rounds(plan))
+    assert lt_decode_plan_cuda.launches == before + (1 if fountain.plan_rounds(plan) else 0)
     assert out.shape == ref.shape and out.dtype == ref.dtype
     ok, err = _err_ok(out, ref, dtype)
     assert ok, err
@@ -553,3 +553,207 @@ def test_lt_encode_at_the_rateless_shapes_matches_plain_version(card, R, K, bm, 
     finite = ref.float()[torch.isfinite(ref)].abs().max()
     tol = TOL[dtype] * (1.0 + float(finite))
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol, equal_nan=True)
+
+
+# --- K3: one launch per peeling plan ---------------------------------------------
+
+from repro_torch.core import coded_matmul as cm  # noqa: E402
+from repro_torch.kernels.lt_decode import (lt_decode_program_ref, plan_program,  # noqa: E402
+                                           schedule)
+
+
+def _decode_inputs(card, R, K, bm, cols, dtype, lost, d_max=8):
+    code = dec_pt.make_decoder_code(R, K, seed=R + K, d_max=d_max)
+    x = torch.as_tensor(np.random.default_rng(R + cols).standard_normal((R * bm, cols)),
+                        dtype=dtype, device=card)
+    coded = lt_encode_ref(x, torch.as_tensor(code.idx, device=card),
+                          torch.as_tensor(code.weights, device=card), bm)
+    keep = np.setdiff1d(np.arange(R + K), lost)
+    plan = fountain.peel_decode_plan(code, keep)
+    crx = coded.reshape(R + K, bm, cols)[torch.as_tensor(keep, device=card)]
+    return code, keep, plan, x, crx.reshape(-1, cols).contiguous()
+
+
+def _nan_equal(out, ref, dtype):
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    fin = torch.isfinite(ref)
+    tol = TOL[dtype] * (1.0 + (float(ref.float()[fin].abs().max()) if bool(fin.any()) else 0.0))
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol, equal_nan=True)
+
+
+def _block0_case(R, K):
+    """A loss set where block 0 is recovered in a round r that also recovers
+    other entries naming block 0 in padding slots, and a later round has
+    such entries too."""
+    code = dec_pt.make_decoder_code(R, K, seed=R + K, d_max=8)
+    for n in range(2, R // 2 + 1):
+        for seed in range(50):
+            lost = np.unique(np.r_[0, np.random.default_rng(n + seed).choice(R, n, replace=False)])
+            plan = fountain.peel_decode_plan(code, np.setdiff1d(np.arange(R + K), lost))
+            if plan is None:
+                continue
+            rounds = fountain.plan_rounds(plan)
+            r0 = next(i for i, r in enumerate(rounds) if 0 in r.src)
+            if (rounds[r0].size > 1 and (rounds[r0].nbr_coef == 0).any()
+                    and any((r.nbr_coef == 0).any() for r in rounds[r0 + 1:])):
+                return lost, r0
+    raise AssertionError(f"no block-0 loss pattern at R{R}K{K}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,K,bm,cols", [(20, 24, 8, 16), (24, 30, 5, 77)])
+def test_lt_decode_block0_recovered_non_finite_in_a_round(card, R, K, bm, cols, dtype):
+    """Block 0 lost and recovered non-finite in round r: round r's other
+    entries read it as the zeros it was before the round (finite), later
+    rounds' padding slots turn it into NaN, as in the plain version."""
+    lost, r0 = _block0_case(R, K)
+    _code, _keep, plan, _x, crx = _decode_inputs(card, R, K, bm, cols, dtype, lost)
+    rounds = fountain.plan_rounds(plan)
+    cpos = int(rounds[r0].coded[list(rounds[r0].src).index(0)])
+    crx[cpos * bm + bm - 1, cols - 1] = torch.inf
+    before = lt_decode_plan_cuda.launches
+    out = lt_decode(crx, plan, bm=bm)
+    ref = lt_decode_ref(crx, plan, bm=bm)
+    torch.cuda.synchronize()
+    assert lt_decode_plan_cuda.launches == before + 1
+    at = ref.view(R, bm, cols)[:, bm - 1, cols - 1]
+    assert all(bool(torch.isfinite(at[int(s)])) for s in rounds[r0].src if s != 0)
+    assert any(bool(torch.isnan(at[int(s)])) for r in rounds[r0 + 1:] for s in r.src)
+    _nan_equal(out, ref, dtype)
+
+
+@pytest.mark.gpu
+def test_lt_decode_plan_larger_than_a_chunk(card):
+    """A plan whose program spans several shared-memory chunks: 2048
+    sources, 700 lost (8392 words, three chunks), through lt_decode and
+    through the plan wrapper against the program's plain version."""
+    R, K, bm, cols = 2048, 2048, 2, 12
+    lost = np.random.default_rng(0).choice(R, size=700, replace=False)
+    _code, keep, plan, x, crx = _decode_inputs(card, R, K, bm, cols, torch.float32, lost,
+                                               d_max=16)
+    assert plan is not None
+    words = plan_program(plan, len(keep))
+    assert words.size > 2 * schedule.CHUNK_WORDS
+    ref = lt_decode_ref(crx, plan, bm=bm)
+    before = lt_decode_plan_cuda.launches
+    out = lt_decode(crx, plan, bm=bm)
+    torch.cuda.synchronize()
+    assert lt_decode_plan_cuda.launches == before + 1
+    torch.testing.assert_close(out, x, rtol=1e-4, atol=1e-4)
+    _nan_equal(out, ref, torch.float32)
+    src = ref.clone()
+    src.view(R, bm, cols)[torch.as_tensor(plan.order_src, device=card).long()] = torch.nan
+    plain = lt_decode_program_ref(crx, src.clone(), words, bm=bm)
+    out = lt_decode_plan_cuda(crx, src, torch.as_tensor(words, device=card), bm)
+    torch.cuda.synchronize()
+    _nan_equal(out, plain, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["unaligned", "ragged", "bf16-unaligned", "all-skipped"])
+def test_lt_decode_plan_layouts(card, layout):
+    """A coded buffer one element past a 16-byte boundary and blocks whose
+    length is no multiple of the vector (the element-wise loop), and a
+    program whose entries are all skipped (src untouched)."""
+    dtype = torch.bfloat16 if layout.startswith("bf16") else torch.float32
+    R, K, bm, cols = 20, 24, 8, (15 if layout == "ragged" else 16)
+    lost = np.random.default_rng(6).choice(R, size=6, replace=False)
+    _code, keep, plan, _x, crx = _decode_inputs(card, R, K, bm, cols, dtype, lost)
+    if layout.endswith("unaligned"):
+        buf = torch.empty(crx.numel() + 1, dtype=dtype, device=card)
+        buf[1:] = crx.reshape(-1)
+        crx = buf[1:].view(-1, cols)
+    ref = lt_decode_ref(crx, plan, bm=bm)
+    if layout == "all-skipped":
+        words = schedule.round_program(np.full(3, -1), plan.order_src[:3], plan.order_nbr_idx[:3],
+                                       plan.order_nbr_coef[:3], np.ones(3, np.float32), R=R,
+                                       n_rx=len(keep))
+        assert words.size > 0
+        before = lt_decode_plan_cuda.launches
+        out = lt_decode_plan_cuda(crx, ref.clone(), torch.as_tensor(words, device=card), bm)
+        torch.cuda.synchronize()
+        assert lt_decode_plan_cuda.launches == before + 1 and torch.equal(out, ref)
+        return
+    out = lt_decode(crx, plan, bm=bm)
+    torch.cuda.synchronize()
+    _nan_equal(out, ref, dtype)
+
+
+def _scan_block0_case(R, K):
+    """A loss set where block 0 is recovered at step t0 and a later step of
+    the same round names block 0 in a padding slot: plan order (the
+    reference's scan) gives it NaN when block 0 is non-finite, the rounds
+    would not."""
+    code = dec_pt.make_decoder_code(R, K, seed=R + K, d_max=8)
+    for n in range(2, R // 2 + 1):
+        for seed in range(50):
+            lost = np.unique(np.r_[0, np.random.default_rng(n + seed).choice(R, n, replace=False)])
+            plan = fountain.peel_decode_plan(code, np.setdiff1d(np.arange(R + K), lost))
+            if plan is None:
+                continue
+            t0 = list(plan.order_src).index(0)
+            step = fountain.plan_step_rounds(plan)
+            pads0 = ((plan.order_nbr_coef == 0) & (plan.order_nbr_idx == 0)).any(axis=1)
+            if (pads0[t0 + 1:] & (step[t0 + 1:] == step[t0])).any():
+                return lost
+    raise AssertionError(f"no same-round block-0 loss pattern at R{R}K{K}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["block0-recovered-inf", "received-block0-nan"])
+def test_fountain_decode_on_the_card_matches_the_cpu_route_on_non_finite_blocks(card, case):
+    """fountain.decode's peel on the card (K3 on the plan's steps in plan
+    order) against the CPU route (apply_decode_plan, the reference's scan),
+    NaN-equal: block 0 lost and recovered as inf, which a later step of its
+    own round reads through a padding slot (NaN); or received block 0
+    holding a NaN."""
+    R, K, bm, cols = 20, 24, 8, 16
+    if case == "block0-recovered-inf":
+        lost = _scan_block0_case(R, K)
+    else:
+        lost = np.random.default_rng(6).choice(np.arange(1, R), size=6, replace=False)
+    code, keep, plan, _x, crx = _decode_inputs(card, R, K, bm, cols, torch.float32, lost)
+    rx = crx.view(len(keep), bm, cols)
+    if case == "block0-recovered-inf":
+        rx[int(plan.order_coded[list(plan.order_src).index(0)]), bm - 1, cols - 1] = torch.inf
+    else:
+        rx[int(plan.direct_coded[list(plan.direct_src).index(0)]), 0, 0] = torch.nan
+    before = lt_decode_plan_cuda.launches
+    out, method = fountain.decode(rx, code, keep)
+    torch.cuda.synchronize()
+    assert method == "peel" and lt_decode_plan_cuda.launches == before + 1
+    cpu, _ = fountain.decode(rx.cpu(), code, keep)
+    assert not bool(torch.isfinite(cpu).all())
+    _nan_equal(out.cpu(), cpu, torch.float32)
+
+
+@pytest.mark.gpu
+def test_fountain_decode_and_recover_on_the_card_match_the_cpu_route(card):
+    """The collector's recovery on CUDA tensors (peel on K3, one launch per
+    peeling loss; the dense solve unchanged) against the CPU route
+    (apply_decode_plan), for every single-shard loss of a small plan."""
+    plan = cm.plan_coded_matmul(rows=512, n_shards=8, overhead=0.25, bm=16)
+    gen = torch.Generator().manual_seed(0)
+    a, x = torch.randn((512, 96), generator=gen), torch.randn((96, 40), generator=gen)
+    out_cpu = cm.run(plan, a, x)
+    out = out_cpu.to(card)
+    methods = []
+    for lost in range(plan.placement.shape[0]):
+        survivors = np.delete(np.arange(plan.placement.shape[0]), lost)
+        ids = np.concatenate([plan.placement[s] for s in survivors])
+        before = lt_decode_plan_cuda.launches
+        y = cm.recover(plan, out, survivors)
+        torch.cuda.synchronize()
+        peel = fountain.peel_decode_plan(plan.code, ids)
+        methods.append("dense" if peel is None else "peel")
+        peeled = peel is not None and peel.n_peeled > 0
+        assert lt_decode_plan_cuda.launches == before + int(peeled)
+        torch.testing.assert_close(y.cpu(), cm.recover(plan, out_cpu, survivors),
+                                   rtol=1e-4, atol=1e-4)
+    assert "peel" in methods
+    rx = out.view(-1, plan.bm, 40)[:plan.blocks_per_shard * 7]
+    ids = np.concatenate([plan.placement[s] for s in range(7)])
+    if fountain.peel_decode_plan(plan.code, ids) is not None:
+        with pytest.raises(ValueError, match="takes"):
+            fountain.decode(rx.double(), plan.code, ids)

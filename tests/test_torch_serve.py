@@ -138,6 +138,20 @@ def test_cache_overrun_reference_clamps_port_refuses():
         model.prefill(params, torch.zeros((1, 3), dtype=torch.int32), caches)
 
 
+def test_sample_mode_reference_ignores_port_refuses(engines):
+    """The reference's ServeEngine stores ``sample`` and decodes greedily
+    whatever it says; the port refuses anything but "greedy" rather than
+    give greedy tokens under another name."""
+    eng_j, eng_p, cfg = engines
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab, size=(2, 8)).astype(np.int32)
+    sampled = ServeEngineJax(eng_j.model, eng_j.params, max_len=48, sample="top_k")
+    assert sampled.sample == "top_k"
+    np.testing.assert_array_equal(sampled.generate(prompts, n_new=3),
+                                  eng_j.generate(prompts, n_new=3))
+    with pytest.raises(ValueError, match="only greedy decoding is ported"):
+        ServeEngine(eng_p.model, eng_p.params, max_len=48, sample="top_k", device="cpu")
+
+
 def test_launch_serve_runs_on_cpu(capsys):
     results = serve_launch.main(["--arch", "phi4-mini-3.8b", "--smoke", "--device", "cpu",
                                  "--requests", "3", "--batch", "2", "--prompt-len", "6",
