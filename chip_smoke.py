@@ -8,7 +8,9 @@ tensor cores), holds each against its plain PyTorch version on the card,
 times it at the main path's shape beside its bound, drives the main paths
 through the port's entry points (one C3P task: the coded-matmul data plane,
 the helpers' products on K1 and the collector's peeling recoveries on K3,
-and the CCP control plane; the rateless path: the LT payload round trip on
+and the CCP control plane beside the uncoded and HCMM baselines; the
+paper's Figs. 3-5 and its efficiency table at their full sweeps; the
+rateless path: the LT payload round trip on
 K2 and K3 and the rateless CCP control plane with the decoder in the loop;
 LM serving: phi4-mini-3.8b at its full published size through
 ``ServeEngine.generate``, attention on K4, then CCP dispatch over two
@@ -53,6 +55,14 @@ RATELESS_LIMIT = 1e-5  # max|decoded - sources| / max|sources|: ±1 pivots, fp32
 # The main path's shape (the first "production-ish" shape of the reference's
 # kernel benchmark): A 8192x4096, X 4096x4096, 8 shards, 25% overhead.
 MAIN = dict(rows=8192, k_dim=4096, n_dim=4096, n_shards=8, overhead=0.25, bm=256)
+# K1 at the reference kernel benchmark's second shape
+# (benchmarks/kernel_bench.py:35): A 8192x8192 in 64 blocks of 128 rows, 16
+# parities, X 8192x1024.
+K1_SECOND = dict(R=64, K=16, bm=128, k=8192, n=1024)
+# The JAX package's committed figure artifacts (data files, read and printed
+# beside the port's rows; nothing of the package is imported).
+REF_BENCH = ROOT / "experiments" / "bench"
+FIGURES_OUT = ROOT / "build" / "repro_torch" / "figures"
 # K4 against its plain version: tests/test_kernels_flash_attention.py's cases,
 # a cache buffer read up to tk_valid, a row with no valid key, wide heads.
 # (B, Hq, Hkv, Tq, Tk, D, causal, window, softcap, q_offset, tk_valid)
@@ -433,10 +443,150 @@ def collector_times(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def k1_second_shape(dev) -> None:
+    """K1 at the reference kernel benchmark's second shape: against its plain
+    version at the fp32 tolerance, its device time by events beside the
+    library product of the encoded blocks and the plain version, and its
+    3xTF32 tensor-core bound."""
+    import torch
+    from repro_torch.core import fountain
+    from repro_torch.kernels.coded_matmul import coded_matmul_cuda, coded_matmul_ref
+    from repro_torch.kernels.coded_matmul.ref import lt_encode_ref
+
+    R, K, bm, k, n = (K1_SECOND[key] for key in ("R", "K", "bm", "k", "n"))
+    code = fountain.make_lt_code(R, K, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    a = torch.randn((R * bm, k), generator=gen, device=dev)
+    x = torch.randn((k, n), generator=gen, device=dev)
+    idx = torch.as_tensor(code.idx, device=dev)
+    w = torch.as_tensor(code.weights, device=dev)
+    C = idx.shape[0]
+    out = coded_matmul_cuda(a, x, idx, w, bm)
+    ref = coded_matmul_ref(a, x, idx, w, bm)
+    torch.cuda.synchronize()
+    err, tol = float((out - ref).abs().max()), tolerance(torch.float32, ref)
+    if not (out.shape == (C * bm, n) and bool(torch.isfinite(out).all()) and err <= tol):
+        raise AssertionError(f"K1 at the second shape: max|err| {err:.3e} > {tol:.3e}")
+    del ref
+    a_enc = lt_encode_ref(a, idx, w, bm)
+    ms = time_ms(lambda: coded_matmul_cuda(a, x, idx, w, bm), 10)
+    plain_ms = time_ms(lambda: coded_matmul_ref(a, x, idx, w, bm), 5)
+    lib_ms = time_ms(lambda: torch.matmul(a_enc, x), 10)
+    nbytes = sum(t.numel() * t.element_size() for t in (a, x, idx, w, out))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * 2.0 * C * bm * k * n / TF32_FLOPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    phase("k1-second-shape", A=f"{R * bm}x{k}", X=f"{k}x{n}", R=R, K=K, C=C, bm=bm,
+          max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}", k1_ms=f"{ms:.4f}",
+          plain_ms=f"{plain_ms:.4f}", torch_matmul_ms=f"{lib_ms:.4f}",
+          bound_ms=f"{bound_ms:.4f}", bound_by="bytes" if t_bytes >= t_ops else "operations",
+          bytes_ms=f"{t_bytes:.4f}", share_of_bound=f"{bound_ms / ms:.3f}")
+    del out, a_enc
+    torch.cuda.empty_cache()
+
+
+def baselines_control_plane(dev) -> None:
+    """The quickstart's CCP against Best, Uncoded (both rules) and HCMM at
+    FIG3[1], R=2000, 200 reps on one seed, held to tests/test_system.py's
+    anchors: every rep certified, CCP ahead of every baseline and within
+    1.25x of eq. (27).  T is in simulated seconds."""
+    from repro_torch import quickstart
+
+    res = quickstart.ccp_vs_baselines(device=dev, R=2000, reps=200)
+    phase("baselines-control-plane", cfg="FIG3[1]", R=2000, reps=200,
+          **{f"T_{p}": f"{res[f'T_{p}']:.6f}" for p in quickstart.POLICIES},
+          T_opt=f"{res['T_opt']:.6f}", vs_hcmm=f"{res['vs_hcmm']:.4f}",
+          vs_uncoded=f"{res['vs_uncoded']:.4f}", efficiency=f"{res['efficiency']:.6f}",
+          M=res["M"], valid=res["valid"], wall_s=f"{res['wall_s']:.3f}")
+    if not all(res["valid"].values()):
+        raise AssertionError(f"uncertified reps: {res['valid']}")
+    for p in ("uncoded_mean", "uncoded_mu", "hcmm"):
+        if not res["T_ccp"] < res[f"T_{p}"]:
+            raise AssertionError(f"T_ccp {res['T_ccp']} >= T_{p} {res[f'T_{p}']}")
+    if not res["T_ccp"] <= 1.25 * res["T_opt"]:
+        raise AssertionError(f"T_ccp {res['T_ccp']} > 1.25 T_opt {res['T_opt']}")
+
+
+def _reference_rows(name: str) -> list:
+    """The rows of the reference's artifact ``name`` (none for Fig. 4: the
+    reference never committed one)."""
+    path = REF_BENCH / f"{name}.json"
+    return json.loads(path.read_text())["data"] if path.exists() else []
+
+
+def _invalid(row: dict, policies) -> int:
+    return sum(row[p]["invalid"] for p in policies)
+
+
+def figures_on_card(dev) -> None:
+    """Figs. 3, 4 and 5 and the efficiency table at their full default
+    sweeps on the card, one line per row (the reference artifact's means
+    beside Fig. 3's, Fig. 5's and the table's) and one per figure with its
+    wall time.  Asserts the orderings that the reference's own artifacts and
+    the paper show.  T is in simulated seconds; wall_s is the host's clock."""
+    from repro_torch.figures import efficiency, fig3, fig4, fig5
+
+    blocks = ("uncoded_mean", "uncoded_mu", "hcmm")
+    for name, mod in (("fig3", fig3), ("fig4", fig4)):
+        out = mod.run(device=dev, out_dir=FIGURES_OUT)
+        ref = {(r["scenario"], r["R"]): r for r in _reference_rows(name)}
+        for row in out["rows"]:
+            r = ref.get((row["scenario"], row["R"]), {})
+            cols = {p: f"{row[p]['mean']:.4f}" for p in mod.POLICIES}
+            if "optimum" in row:
+                cols["optimum"] = f"{row['optimum']['mean']:.4f}"
+            cols.update({f"ref_{p}": f"{r[p]['mean']:.4f}" for p in cols if p in r})
+            phase(name, scenario=row["scenario"], R=row["R"], reps=40,
+                  invalid=_invalid(row, mod.POLICIES), **cols)
+            if _invalid(row, mod.POLICIES):
+                raise AssertionError(f"{name}: uncertified reps at {row['scenario']}/{row['R']}")
+            for p in blocks:
+                if not row["ccp"]["mean"] < row[p]["mean"]:
+                    raise AssertionError(f"{name} sc{row['scenario']} R={row['R']}: "
+                                         f"CCP not below {p}")
+            if row["scenario"] == 2 and not row["hcmm"]["mean"] < min(
+                    row["uncoded_mean"]["mean"], row["uncoded_mu"]["mean"]):
+                raise AssertionError(f"{name} sc2 R={row['R']}: HCMM not below uncoded")
+        phase(name, summary=",".join(f"{k}={v:.4f}" for k, v in out["summary"].items()),
+              wall_s=f"{out['wall_s']:.3f}",
+              out=(FIGURES_OUT / f"{name}.json").relative_to(ROOT))
+
+    out = fig5.run(device=dev, out_dir=FIGURES_OUT)
+    ref = {r["R"]: r for r in _reference_rows("fig5")}
+    for row in out["rows"]:
+        r = ref.get(row["R"], {})
+        phase("fig5", R=row["R"], reps=30, invalid=_invalid(row, fig5.POLICIES),
+              **{p: f"{row[p]['mean']:.4f}" for p in fig5.POLICIES},
+              gap_naive=f"{row['gap_naive']:.4f}", gap_best=f"{row['gap_best']:.4f}",
+              **{f"ref_{k}": f"{r[k]['mean'] if isinstance(r[k], dict) else r[k]:.4f}"
+                 for k in (*fig5.POLICIES, "gap_naive", "gap_best") if k in r})
+        if _invalid(row, fig5.POLICIES):
+            raise AssertionError(f"fig5: uncertified reps at R={row['R']}")
+    gaps = [row["gap_naive"] for row in out["rows"]]
+    phase("fig5", naive_gap_growth=f"{out['naive_gap_growth']:.4f}",
+          best_gap_growth=f"{out['best_gap_growth']:.4f}", wall_s=f"{out['wall_s']:.3f}",
+          out=(FIGURES_OUT / "fig5.json").relative_to(ROOT))
+    if not all(g1 > g0 for g0, g1 in zip(gaps, gaps[1:])):
+        raise AssertionError(f"fig5: the naive gap does not grow with R: {gaps}")
+
+    out = efficiency.run(device=dev, out_dir=FIGURES_OUT)
+    ref = {r["scenario"]: r for r in _reference_rows("efficiency")}
+    for row in out["rows"]:
+        r = ref.get(row["scenario"], {})
+        phase("efficiency", scenario=row["scenario"], R=8000, reps=20, invalid=row["invalid"],
+              measured=f"{row['measured']:.6f}", theory_eq12=f"{row['theory_eq12']:.6f}",
+              **{f"ref_{k}": f"{r[k]:.6f}" for k in ("measured", "theory_eq12") if k in r})
+        if row["invalid"] or not (row["measured"] >= row["theory_eq12"]
+                                  and row["measured"] > 0.99):
+            raise AssertionError(f"efficiency sc{row['scenario']}: {row}")
+    phase("efficiency", wall_s=f"{out['wall_s']:.3f}",
+          out=(FIGURES_OUT / "efficiency.json").relative_to(ROOT))
+
+
 def engine_cpu_vs_card(dev) -> None:
     """The engine on the card against the same engine on the CPU, from one
     set of tables (N=20, R=400, M=256): completion times and efficiencies
-    agree to float32 rounding."""
+    agree to float32 rounding; the block policies' loads bit for bit."""
     import torch
     from repro_torch.core import engine, simulator
 
@@ -444,10 +594,12 @@ def engine_cpu_vs_card(dev) -> None:
     tables = engine.draw_tables(torch.Generator().manual_seed(3), cfg, 4, 400, 256)
     on_card = engine.Tables(*(getattr(tables, f.name).to(dev)
                               for f in dataclasses.fields(tables)))
-    policies = ("ccp", "best", "naive", "rateless_ccp")
+    policies = ("ccp", "best", "naive", "rateless_ccp", "uncoded_mean", "uncoded_mu", "hcmm")
     for policy in policies:
         cpu = engine.simulate(tables, cfg, 400, policy)
         gpu = engine.simulate(on_card, cfg, 400, policy)
+        if "x_loads" in cpu and not torch.equal(gpu["x_loads"].cpu(), cpu["x_loads"]):
+            raise AssertionError(f"{policy}: the loads differ between card and CPU")
         torch.testing.assert_close(gpu["T"].cpu(), cpu["T"], rtol=1e-6, atol=0)
         torch.testing.assert_close(gpu["efficiency"].cpu(), cpu["efficiency"],
                                    rtol=1e-6, atol=1e-7, equal_nan=True)
@@ -464,7 +616,7 @@ def engine_cpu_vs_card(dev) -> None:
     if not torch.equal(ids[1].cpu(), ids[0]):
         raise AssertionError("rateless_ccp: sym_id differs between card and CPU")
     phase("engine-card-vs-cpu", policies=",".join(policies), reps=4, N=20, R=400, M=256,
-          sym_id="equal", agree="yes")
+          sym_id="equal", loads="equal", agree="yes")
 
 
 def _block0_loss(code, R: int, K: int):
@@ -1392,8 +1544,13 @@ def main() -> int:
         raise AssertionError("T_ccp > 1.10 T_best")
     if not ctrl["efficiency"] > 0.99:
         raise AssertionError("mean CCP efficiency <= 0.99")
+    # The block baselines beside CCP, then the paper's figures at their full
+    # sweeps (the control plane: no kernel).
+    baselines_control_plane(dev)
+    figures_on_card(dev)
     collector_times(dev)
     engine_cpu_vs_card(dev)
+    k1_second_shape(dev)
 
     # 7.-8. The rateless path: the LT payload round trip on K2 and K3 (their
     # launch counts are reset inside, just before each shape's round trip),

@@ -225,7 +225,16 @@ def simulate(tables: Tables, cfg, R: int, policy) -> Dict[str, torch.Tensor]:
     kk = R + cfg.K(R)
     t, valid = policy.finalize(outs, aux, cfg, R, kk, None)  # tx_end: churn only
     tr, idle, beta = outs["tr"], outs["idle"], outs["beta"]
+    mask = policy.packet_mask(aux, cfg.N, beta.shape[-1])
+    if mask is not None:
+        # Block policies: packets beyond the assigned block do not exist
+        # physically; exclude them from the per-helper statistics.
+        tr = torch.where(mask, tr, torch.inf)
+        idle = torch.where(mask, idle, 0.0)
+        beta = torch.where(mask, beta, 0.0)
     eff = sim.efficiency_measured(tr, idle, beta, t)
+    # isfinite guard: when t is +inf (an uncompletable block-policy rep)
+    # the inf sentinels in tr must not count as delivered packets.
     r_n = (torch.isfinite(tr) & (tr <= t[:, None, None])).sum(dim=-1)
     # Loss rate over packets actually sent (0 on the static path).
     n_sent = torch.isfinite(outs["tx"]).sum(dim=-1)
@@ -235,6 +244,7 @@ def simulate(tables: Tables, cfg, R: int, policy) -> Dict[str, torch.Tensor]:
     res = dict(T=t, valid=valid, efficiency=eff, r_n=r_n, mu=tables.mu,
                a=tables.a, rate=tables.rate,
                max_backoff=outs["backoff"].amax(dim=-1), lost_frac=lost_frac)
+    res.update({f"x_{k}": aux[k] for k in policy.report_aux})
     res.update({f"x_{k}": v for k, v in psum.items()})
     return res
 

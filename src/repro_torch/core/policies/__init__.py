@@ -1,19 +1,23 @@
 """Offloading policies of the port's engine (see :mod:`.base`).
 
 Ported: ``ccp`` (Algorithm 1), ``best`` (oracle TTI), ``naive`` and
-``naive_oracle`` (stop-and-wait, eq. 16) and ``rateless_ccp`` (Algorithm 1
-with the decoder in the loop).  The reference's other policies are listed
+``naive_oracle`` (stop-and-wait, eq. 16), ``rateless_ccp`` (Algorithm 1
+with the decoder in the loop), and the block baselines ``uncoded_mean``,
+``uncoded_mu`` and ``hcmm``.  The reference's other policies are listed
 in ``base.NOT_PORTED`` with their ROADMAP slice.
 """
 
 from .base import RING, Policy, StepCtx, get, names, register  # noqa: F401
 
 # Importing the modules registers the built-ins.
-from . import best, ccp, naive, rateless  # noqa: F401, E402
+from . import best, ccp, hcmm, naive, rateless, uncoded  # noqa: F401, E402
 from .best import BestPolicy  # noqa: F401
 from .ccp import CCPPolicy  # noqa: F401
+from .hcmm import HCMMPolicy  # noqa: F401
 from .naive import NaivePolicy  # noqa: F401
 from .rateless import RatelessCCPPolicy  # noqa: F401
+from .uncoded import UncodedPolicy  # noqa: F401
 
 __all__ = ["RING", "Policy", "StepCtx", "get", "names", "register",
-           "CCPPolicy", "BestPolicy", "NaivePolicy", "RatelessCCPPolicy"]
+           "CCPPolicy", "BestPolicy", "HCMMPolicy", "NaivePolicy",
+           "RatelessCCPPolicy", "UncodedPolicy"]

@@ -27,7 +27,16 @@ Protocol (port of ``repro.core.policies.base``, static path):
     Completion rule.  Default: the fountain-coded (R+K)-th order statistic
     (:func:`repro_torch.core.simulator.completion_time`).  ``tx_end`` is
     the send time of the first unsimulated packet under churn, and None on
-    the static path, as in the reference.
+    the static path, as in the reference.  Block-assignment policies
+    override (every/enough helpers must finish their block).
+``packet_mask(aux, n, m) -> (B, N, M) bool | None``
+    Which simulated packets physically exist (block policies send only
+    ``loads[n]``); ``None`` means all.  Masked packets are excluded from
+    the per-helper efficiency/contribution statistics.
+``report_aux``
+    Class attribute: the ``aux`` keys the engine copies into the results
+    as ``x_<key>`` (``RunResult.extras``), e.g. the block policies'
+    ``("loads",)``.
 ``backoff(state) -> tensor | None``
     Current timeout-backoff factor for the trace (None -> ones).
 ``summary(state) -> dict``
@@ -66,12 +75,9 @@ RING = 16  # ring-buffer slots for in-flight (Tr, TTI) pairs
 # Reference policies still to be ported, with the ROADMAP item that brings
 # each (queue 1 of ROADMAP.md).
 NOT_PORTED = {
-    "adaptive_rate_fb": "baselines slice (subclasses adaptive_rate; churn machinery)",
-    "uncoded_mean": "baselines slice (block policies)",
-    "uncoded_mu": "baselines slice (block policies)",
-    "hcmm": "baselines slice (block policies)",
-    "adaptive_rate": "baselines slice (block and adaptive policies)",
-    "tfrc_ccp": "transport slice (core/transport/)",
+    "adaptive_rate": "B2, churn slice (ChurnConfig and the churn machinery)",
+    "adaptive_rate_fb": "B2, churn slice (subclasses adaptive_rate)",
+    "tfrc_ccp": "B3, transport slice (core/transport/)",
 }
 
 
@@ -121,6 +127,8 @@ class Policy:
     #: True -> the engine runs the incremental peeling decoder in the loop
     #: and fills StepCtx.decoded_count/ripple/decode_done/decode_t_done.
     uses_decoder: bool = False
+    #: aux keys copied into the results as ``x_<key>`` (see module doc)
+    report_aux: tuple = ()
 
     def prepare(self, cfg, R: int, ccp_cfg, mu, a, rate) -> dict:
         return {}
@@ -140,6 +148,9 @@ class Policy:
     def finalize(self, outs, aux, cfg, R: int, kk: int, tx_end):
         from ..simulator import completion_time  # lazy: avoids import cycle
         return completion_time(outs["tr"], kk, tx_end=tx_end)
+
+    def packet_mask(self, aux, n: int, m: int):
+        return None
 
     def backoff(self, state):
         return None

@@ -66,8 +66,8 @@ class ScenarioConfig:
     def __post_init__(self):
         if self.churn is not None:
             raise NotImplementedError(
-                "churn is not ported yet (ROADMAP queue 1, 'baselines, churn, "
-                "transport and fleet' slice); use churn=None")
+                "churn is not ported yet (ROADMAP queue 1, slice B2, churn); "
+                "use churn=None")
 
     def K(self, R: int) -> int:
         return int(np.ceil(self.overhead * R))

@@ -1,17 +1,18 @@
 """Quickstart: one C3P task end to end on the port.
 
-1. Simulate CCP against the oracle Best on the paper's Scenario-1 setup
-   (Fig. 3a: N=100, R=2000) over 200 reps, beside the eq. (27) optimum.
-2. The same setup with the decoder in the loop: rateless CCP completes at
+1. Simulate CCP against the oracle Best, the two Uncoded allocations and
+   HCMM on the paper's Scenario-1 setup (Fig. 3a: N=100, R=2000) over 200
+   reps, beside the eq. (27) optimum.
+2. CCP against Best alone on the same setup.
+3. The same setup with the decoder in the loop: rateless CCP completes at
    real LT decode success, beside CCP's (R+K)-th packet count.
-3. Run a fountain-coded distributed matmul, lose each shard in turn, and
+4. Run a fountain-coded distributed matmul, lose each shard in turn, and
    recover y = A x from the survivors.
 
     PYTHONPATH=src python -m repro_torch.quickstart                # on the card
     PYTHONPATH=src python -m repro_torch.quickstart --device cpu
 
-The port's counterpart of ``examples/quickstart.py``, without the
-uncoded/HCMM baselines (a later slice).
+The port's counterpart of ``examples/quickstart.py``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,45 @@ import torch
 from . import _device
 from .configs.ccp_paper import FIG3, REPS
 from .core import coded_matmul, engine, theory
+
+
+# The policies of ccp_vs_baselines: CCP, the oracle and the paper's baselines.
+POLICIES = ("ccp", "best", "uncoded_mean", "uncoded_mu", "hcmm")
+
+
+def ccp_vs_baselines(device=None, R: int = 2000, reps: int = REPS, seed: int = 0) -> dict:
+    """CCP, Best, Uncoded (both rules) and HCMM through ``Engine.run`` on one
+    seed, so every policy sees the same helper draws: each policy's mean T
+    over its certified reps, the mean eq. (27) optimum of the CCP run's own
+    draws, CCP's improvement over HCMM and over the better uncoded rule,
+    CCP's mean helper efficiency, and each policy's certification and M."""
+    cfg = FIG3[1]
+    eng = engine.Engine(device=device)
+    print(f"== CCP vs baselines (paper Fig. 3a setup, R={R}, {reps} reps, "
+          f"{eng.device}) ==")
+    t0 = time.perf_counter()
+    res = {name: eng.run(cfg, name, reps, R, seed=seed) for name in POLICIES}
+    wall = time.perf_counter() - t0
+    ccp = res["ccp"]
+    mu, a = ccp.mu.cpu().numpy(), ccp.a.cpu().numpy()
+    t_opt = float(np.mean([theory.t_opt_model1(R, cfg.K(R), a[r], mu[r])
+                           for r in range(reps)]))
+    out = {f"T_{name}": float(r.T[r.valid].mean()) for name, r in res.items()}
+    t_unc = min(out["T_uncoded_mean"], out["T_uncoded_mu"])
+    out.update(
+        T_opt=t_opt, vs_hcmm=1 - out["T_ccp"] / out["T_hcmm"],
+        vs_uncoded=1 - out["T_ccp"] / t_unc,
+        efficiency=float(torch.nanmean(ccp.efficiency)),
+        valid={name: bool(r.valid.all()) for name, r in res.items()},
+        M={name: r.M for name, r in res.items()}, wall_s=wall,
+    )
+    for name in POLICIES:
+        print(f"  T_{name:12s} = {out[f'T_{name}']:8.2f}s   (M={out['M'][name]})")
+    print(f"  T_optimum      = {t_opt:8.2f}s   (eq. 27)")
+    print(f"  CCP vs HCMM: {out['vs_hcmm']:+.1%}, vs uncoded: {out['vs_uncoded']:+.1%}")
+    print(f"  mean helper efficiency: {out['efficiency']:.2%}   all reps certified: "
+          f"{all(out['valid'].values())}   wall {wall:.2f}s\n")
+    return out
 
 
 def ccp_vs_best(device=None, R: int = 2000, reps: int = REPS, seed: int = 0) -> dict:
@@ -125,6 +165,7 @@ if __name__ == "__main__":
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args()
+    ccp_vs_baselines(args.device)
     ccp_vs_best(args.device)
     rateless_vs_ccp(args.device)
     coded_offload(args.device)

@@ -757,3 +757,52 @@ def test_fountain_decode_and_recover_on_the_card_match_the_cpu_route(card):
     if fountain.peel_decode_plan(plan.code, ids) is not None:
         with pytest.raises(ValueError, match="takes"):
             fountain.decode(rx.double(), plan.code, ids)
+
+
+# The block baselines' control plane: no kernel of its own, but its loads
+# come from sums and a float32 Newton solve whose bits must not depend on
+# the device (one ulp can move a largest-remainder tie).
+import dataclasses  # noqa: E402
+
+from repro_torch.configs.ccp_paper import FIG3, FIG4  # noqa: E402
+from repro_torch.core import engine as eng_pt  # noqa: E402
+from repro_torch.core import simulator as sim_pt  # noqa: E402
+from repro_torch.core.policies import hcmm as hcmm_pt  # noqa: E402
+from repro_torch.core.policies import uncoded as uncoded_pt  # noqa: E402
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["uncoded_mean", "uncoded_mu", "hcmm"])
+@pytest.mark.parametrize("N,scenario", [(20, 1), (20, 2), (100, 1)])
+def test_block_policy_on_the_card_equals_the_cpu(card, policy, N, scenario):
+    """One set of tables through ``simulate`` on the card and on the CPU:
+    loads bitwise, T at rtol 1e-6, r_n and valid equal."""
+    cfg, R = sim_pt.ScenarioConfig(N=N, scenario=scenario), 400 if N == 20 else 2000
+    tables = eng_pt.draw_tables(torch.Generator().manual_seed(N + scenario), cfg, 8, R, 128)
+    on_card = eng_pt.Tables(*(getattr(tables, f.name).to(card)
+                              for f in dataclasses.fields(tables)))
+    cpu = eng_pt.simulate(tables, cfg, R, policy)
+    gpu = eng_pt.simulate(on_card, cfg, R, policy)
+    assert torch.equal(gpu["x_loads"].cpu(), cpu["x_loads"])
+    torch.testing.assert_close(gpu["T"].cpu(), cpu["T"], rtol=1e-6, atol=0)
+    torch.testing.assert_close(gpu["efficiency"].cpu(), cpu["efficiency"], rtol=1e-6,
+                               atol=1e-7, equal_nan=True)
+    for k in ("r_n", "valid"):
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [FIG3[1], FIG4[1]], ids=["fig3", "fig4"])
+@pytest.mark.parametrize("R", [1000, 2000, 4000, 8000])
+def test_block_allocations_on_the_card_equal_the_cpu(card, cfg, R):
+    """The figures' helper draws (N=100, 200 reps): the ordered sum, HCMM's
+    Newton root and every policy's loads are bitwise the CPU's."""
+    mu, a, _rate = sim_pt.draw_helpers(torch.Generator().manual_seed(R), cfg, 200)
+    assert torch.equal(uncoded_pt.ordered_sum(mu.to(card)).cpu(), uncoded_pt.ordered_sum(mu))
+    assert torch.equal(hcmm_pt.u_star((mu * a).to(card)).cpu(), hcmm_pt.u_star(mu * a))
+    assert torch.equal(hcmm_pt.hcmm_loads(R, mu.to(card), a.to(card)).cpu(),
+                       hcmm_pt.hcmm_loads(R, mu, a))
+    for rule in ("mean", "mu"):
+        pol = uncoded_pt.UncodedPolicy(rule=rule)
+        assert torch.equal(pol.prepare(cfg, R, None, mu.to(card), a.to(card), None)["loads"].cpu(),
+                           pol.prepare(cfg, R, None, mu, a, None)["loads"])

@@ -49,7 +49,8 @@ def _pt_cfg(cfg):
                                  alpha=cfg.alpha)
 
 
-PORTED = ["ccp", "best", "naive", "naive_oracle", "rateless_ccp"]
+PORTED = ["ccp", "best", "naive", "naive_oracle", "rateless_ccp", "uncoded_mean",
+           "uncoded_mu", "hcmm"]
 
 
 @pytest.mark.parametrize("policy", PORTED)
@@ -249,7 +250,7 @@ def test_engine_refusals():
     with pytest.raises(ValueError, match="known policies"):
         eng.run(cfg, "nope", 2, 100)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.run(cfg, "hcmm", 2, 100)
+        eng.run(cfg, "tfrc_ccp", 2, 100)
     with pytest.raises(ValueError, match="R must be"):
         eng.run(cfg, "ccp", 2, 0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -13,7 +13,8 @@ import torch
 
 from repro_torch import _device, interop, quickstart
 from repro_torch.configs import get_config
-from repro_torch.core import engine, simulator
+from repro_torch.core import baselines, engine, simulator
+from repro_torch.figures import run as figures_run
 from repro_torch.launch import serve as serve_launch
 from repro_torch.models import build_model
 from repro_torch.runtime.serve_loop import ServeEngine
@@ -38,6 +39,8 @@ res = quickstart.coded_offload(device="cpu")
 assert max(res["rel_err"]) <= 1e-4, res
 res = quickstart.rateless_vs_ccp(device="cpu", R=100, reps=2)
 assert res["certified"], res
+res = quickstart.ccp_vs_baselines(device="cpu", R=300, reps=2)
+assert all(res["valid"].values()), res
 from repro_torch.launch import serve
 out = serve.main(["--arch", "phi4-mini-3.8b", "--smoke", "--device", "cpu", "--requests", "3",
                   "--batch", "2", "--prompt-len", "6", "--new-tokens", "3", "--max-len", "16",
@@ -84,6 +87,12 @@ def test_default_device_is_cuda_and_entry_points_refuse_without_a_card():
         quickstart.ccp_vs_best(reps=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         quickstart.rateless_vs_ccp(reps=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quickstart.ccp_vs_baselines(reps=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        baselines.run_hcmm(cfg, 20)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        figures_run.main(["--smoke", "--only", "fig5"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_launch.main(["--arch", "phi4-mini-3.8b", "--smoke"])
     model = build_model(get_config("phi4-mini-3.8b", smoke=True))
