@@ -12,6 +12,8 @@ and the CCP control plane beside the uncoded and HCMM baselines; the
 paper's Figs. 3-5 and its efficiency table at their full sweeps; the
 rateless path: the LT payload round trip on
 K2 and K3 and the rateless CCP control plane with the decoder in the loop;
+churn: the loop's losses and timeouts on the card against the CPU, and the
+churn figures fig_churn and fig_decode at their full sweeps;
 LM serving: phi4-mini-3.8b at its full published size through
 ``ServeEngine.generate``, attention on K4, then CCP dispatch over two
 replicas and the card against the CPU), checks the results, and prints one
@@ -24,7 +26,6 @@ or a directory without the repository's ``src/``.  Imports nothing of JAX.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import subprocess
 import sys
@@ -300,7 +301,16 @@ def kernel_device_ms(call, reps: int, groups: dict) -> dict:
     ``groups``, the kernels whose name holds one of its "|"-separated
     substrings, and under
     "other" the rest.  Unlike CUDA events around back-to-back calls, this
-    does not count the device's idle time while the host enqueues."""
+    does not count the device's idle time while the host enqueues.
+
+    The profiler can drop some of a window's kernel records (torch 2.11
+    on an H100: 2 of 20 before the churn phases, 11 of 20 after their
+    millions of small launches; each record kept is whole), so a kernel's
+    time a call is the mean of its records times its launches a call, the
+    smallest whole number that covers the records seen; the dropped
+    records are printed."""
+    import math
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -312,16 +322,22 @@ def kernel_device_ms(call, reps: int, groups: dict) -> dict:
             call()
         torch.cuda.synchronize()
     out = dict.fromkeys([*groups, "other"], 0.0)
+    seen = expected = 0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
         if e.device_type != DeviceType.CUDA or not us:
             continue
         key = next((g for g, subs in groups.items()
                     if any(sub in e.key for sub in subs.split("|"))), "other")
-        out[key] += us / 1e3 / reps
+        per_call = math.ceil(e.count / reps)
+        out[key] += us / e.count * per_call / 1e3
+        seen, expected = seen + e.count, expected + per_call * reps
     for g in groups:
         if not out[g] > 0:
             raise AssertionError(f"the profiler saw no {groups[g]} kernel")
+    if seen < expected:
+        phase("profiler", kernels=",".join(groups.values()), records=seen, expected=expected,
+              dropped=expected - seen)
     return out
 
 
@@ -592,8 +608,7 @@ def engine_cpu_vs_card(dev) -> None:
 
     cfg = simulator.ScenarioConfig(N=20, scenario=1)
     tables = engine.draw_tables(torch.Generator().manual_seed(3), cfg, 4, 400, 256)
-    on_card = engine.Tables(*(getattr(tables, f.name).to(dev)
-                              for f in dataclasses.fields(tables)))
+    on_card = tables.to(dev)
     policies = ("ccp", "best", "naive", "rateless_ccp", "uncoded_mean", "uncoded_mu", "hcmm")
     for policy in policies:
         cpu = engine.simulate(tables, cfg, 400, policy)
@@ -1045,6 +1060,188 @@ def rateless_control_plane(dev) -> None:
             raise AssertionError(f"rateless_ccp's {k} trace differs from ccp's")
     phase("rateless-pacing-equals-ccp", cfg="FIG3[1]", reps=16, R=R, M=256,
           traces="tx,tr,arrive,idle", equal="yes")
+
+
+CHURN_POLICIES = ("ccp", "best", "naive", "naive_oracle", "uncoded_mean", "uncoded_mu",
+                  "hcmm", "rateless_ccp", "adaptive_rate", "adaptive_rate_fb")
+# The card against the CPU under churn: the churn golden's config
+# (tests/test_policies.py: N=16, lognormal outages, slowdowns, i.i.d. drop,
+# Gilbert–Elliott and cell outages) at the golden's largest horizon.
+CHURN_CARD_VS_CPU = dict(N=16, R=200, M=840, reps=4)
+# An ordering of two policies' means in a reference artifact's row is
+# asserted on the port's row only where the reference separates them by
+# more than this share of the larger mean (other draws move each mean by a
+# few standard errors, about 1-3%).
+ORDER_MARGIN = 0.05
+
+
+def _kernel_launches() -> dict:
+    from repro_torch.kernels.coded_matmul import kernel as k1
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.kernels.lt_decode import kernel as k3
+    from repro_torch.kernels.lt_encode import kernel as k2
+
+    return {"coded_matmul": k1.coded_matmul_cuda.launches,
+            "lt_encode": k2.lt_encode_cuda.launches,
+            "lt_decode": k3.lt_decode_plan_cuda.launches + k3.lt_decode_round_cuda.launches,
+            "flash_attention": k4.flash_attention_cuda.launches}
+
+
+def _no_kernel_between(before: dict, label: str) -> None:
+    """The churn paths are the control plane: no kernel of the port runs."""
+    delta = {k: v - before[k] for k, v in _kernel_launches().items()}
+    if any(delta.values()):
+        raise AssertionError(f"{label} launched kernels: {delta}")
+
+
+def _golden_churn_cfg(N: int):
+    from repro_torch.core import simulator
+
+    return simulator.ScenarioConfig(N=N, scenario=1, churn=simulator.ChurnConfig(
+        period=5.0, p_down=0.1, p_slow=0.2, drop_prob=0.05, ge_p_bad=0.02, ge_p_good=0.2,
+        ge_loss_bad=0.5, p_cell=0.1, cell_frac=0.5, outage_dist="lognormal",
+        outage_mean=4.0, outage_sigma=0.5, max_backoff=8.0))
+
+
+def churn_card_vs_cpu(dev) -> None:
+    """The churn loop on the card against the CPU on one set of tables:
+    every ported policy's lost, tx and tr traces, T, r_n, valid,
+    max_backoff and lost_frac bit for bit; efficiency at rtol 1e-6."""
+    import torch
+    from repro_torch.core import engine
+
+    c = CHURN_CARD_VS_CPU
+    cfg, R = _golden_churn_cfg(c["N"]), c["R"]
+    tables = engine.draw_tables(torch.Generator().manual_seed(1), cfg, c["reps"], R, c["M"])
+    on_card = tables.to(dev)
+    cc = cfg.ccp_cfg(R)
+    before = _kernel_launches()
+    t0 = time.perf_counter()
+    lost = {}
+    for policy in CHURN_POLICIES:
+        pol = engine._as_policy(policy)
+        traces = [engine.policy_stream(
+            t.beta, t.d_up, t.d_ack, t.d_down, policy=pol,
+            cfg_static=(cc.Bx, cc.Br, cc.Back, cc.alpha), churn_static=cfg.churn.static_key(),
+            dyn=t.dyn, a=t.a, aux=pol.prepare(cfg, R, cc, t.mu, t.a, t.rate))[0]
+            for t in (tables, on_card)]
+        for k in ("lost", "tx", "tr", "tx_end"):
+            if not torch.equal(traces[1][k].cpu(), traces[0][k]):
+                raise AssertionError(f"churn {policy}: the {k} trace differs between card and CPU")
+        cpu = engine.simulate(tables, cfg, R, policy)
+        gpu = engine.simulate(on_card, cfg, R, policy)
+        for k in ("T", "r_n", "valid", "max_backoff", "lost_frac"):
+            if not torch.equal(gpu[k].cpu(), cpu[k]):
+                raise AssertionError(f"churn {policy}: {k} differs between card and CPU")
+        torch.testing.assert_close(gpu["efficiency"].cpu(), cpu["efficiency"],
+                                   rtol=1e-6, atol=1e-7, equal_nan=True)
+        lost[policy] = int(traces[0]["lost"].sum())
+    _no_kernel_between(before, "churn-card-vs-cpu")
+    phase("churn-card-vs-cpu", cfg="golden churn", N=c["N"], R=R, M=c["M"], reps=c["reps"],
+          policies=",".join(CHURN_POLICIES), lost=",".join(str(v) for v in lost.values()),
+          equal="lost,tx,tr,tx_end,T,r_n,valid,max_backoff,lost_frac",
+          wall_s=f"{time.perf_counter() - t0:.3f}")
+    if not all(lost.values()):
+        raise AssertionError(f"a policy lost no packet under churn: {lost}")
+
+
+def _check_orderings(name: str, row: dict, ref: dict, policies, where: str) -> int:
+    """Assert on the port's row every ordering of two policies' means that
+    the reference artifact's row shows with a margin; returns the count."""
+    n = 0
+    for p in policies:
+        for q in policies:
+            if p in ref and q in ref and ref[p]["mean"] < (1 - ORDER_MARGIN) * ref[q]["mean"]:
+                n += 1
+                if not row[p]["mean"] < row[q]["mean"]:
+                    raise AssertionError(
+                        f"{name} {where}: the reference has {p} below {q} "
+                        f"({ref[p]['mean']:.3f} < {ref[q]['mean']:.3f}), the port "
+                        f"{row[p]['mean']:.3f} >= {row[q]['mean']:.3f}")
+    return n
+
+
+def churn_figures_on_card(dev) -> None:
+    """fig_churn (N=50, R=1000, 40 reps, its three sweeps and five
+    policies) and fig_decode (N=20, R=400, 40 reps, drop 0-0.3) at the
+    reference figure scripts' full defaults on the card, one line a row with the
+    invalid count and the reference artifact's means beside the port's;
+    asserts the orderings the artifact shows (ORDER_MARGIN).  T is in
+    simulated seconds; wall_s is the host's clock."""
+    from repro_torch.figures import fig_churn, fig_decode
+
+    before = _kernel_launches()
+    out = fig_churn.run(device=dev, out_dir=FIGURES_OUT)
+    axes = {"iid": "drop_prob", "burst": "ge_p_bad", "cell": "p_cell"}
+    ref = {(r["sweep"], r[axes[r["sweep"]]]): r for r in _reference_rows("fig_churn")}
+    checked = 0
+    for row in out["rows"]:
+        x = row[axes[row["sweep"]]]
+        r = ref[(row["sweep"], x)]
+        phase("fig_churn", sweep=row["sweep"], **{axes[row["sweep"]]: x}, reps=40,
+              invalid=_invalid(row, fig_churn.POLICIES),
+              M=",".join(str(row[p]["M"]) for p in fig_churn.POLICIES),
+              **{p: f"{row[p]['mean']:.4f}" for p in fig_churn.POLICIES},
+              **{f"ref_{p}": f"{r[p]['mean']:.4f}" for p in fig_churn.POLICIES},
+              ref_invalid=_invalid(r, fig_churn.POLICIES))
+        checked += _check_orderings("fig_churn", row, r, fig_churn.POLICIES,
+                                    f"{row['sweep']}={x}")
+    phase("fig_churn", orderings_checked=checked, wall_s=f"{out['wall_s']:.3f}",
+          sweep_wall_s=",".join(f"{k}={v:.3f}" for k, v in out["sweep_wall_s"].items()),
+          summary=",".join(f"{k}={v:.4f}" for k, v in out["summary"].items()),
+          out=(FIGURES_OUT / "fig_churn.json").relative_to(ROOT))
+
+    out = fig_decode.run(device=dev, out_dir=FIGURES_OUT)
+    ref = {r["drop_prob"]: r for r in _reference_rows("fig_decode")}
+    checked = 0
+    for row in out["rows"]:
+        r = ref[row["drop_prob"]]
+        phase("fig_decode", drop_prob=row["drop_prob"], reps=40,
+              invalid=",".join(str(row[p]["invalid"]) for p in fig_decode.POLICIES),
+              M=",".join(str(row[p]["M"]) for p in fig_decode.POLICIES),
+              **{p: f"{row[p]['mean']:.4f}" for p in fig_decode.POLICIES},
+              overhead_frac=f"{row['rateless_ccp']['overhead']['frac_mean']:.4f}",
+              counter_gap=f"{row['counter_gap']:.4f}", feedback_gain=f"{row['feedback_gain']:.4f}",
+              **{f"ref_{p}": f"{r[p]['mean']:.4f}" for p in fig_decode.POLICIES},
+              ref_invalid=",".join(str(r[p]["invalid"]) for p in fig_decode.POLICIES),
+              ref_overhead_frac=f"{r['rateless_ccp']['overhead']['frac_mean']:.4f}",
+              ref_counter_gap=f"{r['counter_gap']:.4f}",
+              ref_feedback_gain=f"{r['feedback_gain']:.4f}")
+        checked += _check_orderings("fig_decode", row, r, fig_decode.POLICIES,
+                                    f"p={row['drop_prob']}")
+    _no_kernel_between(before, "the churn figures")
+    phase("fig_decode", orderings_checked=checked, wall_s=f"{out['wall_s']:.3f}",
+          summary=",".join(f"{k}={v:.4f}" for k, v in out["summary"].items()),
+          out=(FIGURES_OUT / "fig_decode.json").relative_to(ROOT))
+
+
+def churn_control_plane(dev) -> None:
+    """One ``Engine.run`` a ported policy at fig_churn's burst endpoint
+    (N=50, R=1000, 40 reps, GE p_bad 0.06): wall time, the horizon M it
+    certified at, certified reps, and the decoder's host syncs (the
+    decoder policies' only device-to-host copies inside the loop)."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.core.decode import peeling
+    from repro_torch.figures import fig_churn
+
+    cfg = fig_churn.burst_cfg(fig_churn.BURST_SWEEP[-1])
+    eng = engine.Engine(device=dev)
+    before = _kernel_launches()
+    for policy in CHURN_POLICIES:
+        peeling.host_syncs = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.run(cfg, policy, 40, fig_churn.R, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ok = res.valid & torch.isfinite(res.T)
+        t_mean = float(res.T[ok].mean()) if bool(ok.any()) else float("inf")
+        phase("churn-control-plane", cfg="fig_churn burst p_bad=0.06", N=cfg.N, R=fig_churn.R,
+              reps=40, policy=policy, M=res.M, certified=int(res.valid.sum()),
+              T_mean=f"{t_mean:.4f}", lost_frac=f"{float(res.lost_frac.mean()):.4f}",
+              wall_s=f"{wall:.3f}", host_syncs=peeling.host_syncs)
+    _no_kernel_between(before, "churn-control-plane")
 
 
 def _qkv(dev, gen, B, Hq, Hkv, Tq, Tk, D, dtype):
@@ -1558,6 +1755,13 @@ def main() -> int:
     lt = rateless_data_plane(dev)
     lt["lt_decode"]["launches"] += launches_collector  # K3 on both paths
     rateless_control_plane(dev)
+
+    # 8b. Churn (the control plane, no kernel): the loop on the card against
+    # the CPU, the churn figures at their full defaults, and one run a
+    # policy at the burst endpoint.
+    churn_card_vs_cpu(dev)
+    churn_figures_on_card(dev)
+    churn_control_plane(dev)
 
     # 9.-11. LM serving: K4 against its plain version, K4 at the serving
     # path's shapes, then phi4-mini-3.8b at full size through the engine

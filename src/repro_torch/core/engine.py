@@ -1,21 +1,23 @@
 """Policy-driven Monte-Carlo engine: one entry point for every offloading
-policy (static path).
+policy.
 
-The engine owns the *scenario dynamics* — helper draws and per-packet
-link/compute timing — and threads a
-:class:`~repro_torch.core.policies.base.Policy` through a per-packet loop:
-the policy decides pacing (``next_load``), receipt handling
-(``on_computed``) and the completion rule (``finalize``).  For a policy
-with ``uses_decoder`` the loop also runs the incremental peeling decoder
+The engine owns the *scenario dynamics* — helper draws, per-packet
+link/compute timing and the churn loss processes (phase or interval
+outages, Gilbert–Elliott burst loss, correlated cell outages, slowdowns) —
+and threads a :class:`~repro_torch.core.policies.base.Policy` through a
+per-packet loop: the policy decides pacing (``next_load``), receipt
+handling (``on_computed``), loss reaction (``on_timeout``, under churn) and
+the completion rule (``finalize``).  For a policy with ``uses_decoder`` the
+loop also runs the incremental peeling decoder
 (:mod:`repro_torch.core.decode`) on every step's arrivals.
 
-Port of the single-task static path of ``repro.core.engine``.  The
-reference's ``vmap`` over reps becomes a leading rep dimension ``(B, N, M)``
-and its ``lax.scan`` a Python loop over packet steps.  A rep is split into
-"draw tables" (:func:`draw_tables`, on a ``torch.Generator``) and "simulate
-from tables" (:func:`simulate`), so tests can feed the port tables that the
-reference drew and compare the traces.  Churn, the transport line, fleets
-and ``shard=True`` are later slices (ROADMAP).
+Port of the single-task path of ``repro.core.engine``.  The reference's
+``vmap`` over reps becomes a leading rep dimension ``(B, N, M)`` and its
+``lax.scan`` a Python loop over packet steps.  A rep is split into "draw
+tables" (:func:`draw_tables`, on a ``torch.Generator``) and "simulate from
+tables" (:func:`simulate`), so tests can feed the port tables (and churn
+dynamics) that the reference drew and compare the traces.  The transport
+line, fleets and ``shard=True`` are later slices (ROADMAP).
 
 Typical usage::
 
@@ -65,8 +67,88 @@ def _check_R(R) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Decoder step (the reference's shared step kernels of the static path)
+# Step kernels (the reference's shared step kernels of the single-task loop)
 # ---------------------------------------------------------------------------
+
+def _parse_churn_static(churn_static):
+    """Unpack ``ChurnConfig.static_key()`` — the 6-tuple, the
+    pre-transport 5-tuple, or the 2-tuple (period, max_backoff) of phase
+    outages only, as the reference's direct ``policy_stream`` callers pass."""
+    ge_on = cell_on = False
+    outage_dist = "phase"
+    rtt_dist = "off"
+    if len(churn_static) == 2:
+        period, max_backoff = churn_static
+    elif len(churn_static) == 5:
+        period, max_backoff, outage_dist, ge_on, cell_on = churn_static
+    else:
+        (period, max_backoff, outage_dist, ge_on, cell_on,
+         rtt_dist) = churn_static
+    if rtt_dist != "off":
+        raise NotImplementedError(
+            f"rtt_dist={rtt_dist!r}: the transport line is not ported yet "
+            "(ROADMAP queue 1, slice B3, transport)")
+    return period, max_backoff, outage_dist, ge_on, cell_on
+
+
+def _churn_step(dyn, a, beta_x, drop, t_arr, t_sta, sent, *, period, window,
+                outage_dist, cell_on):
+    """Outage / slowdown / i.i.d.-drop evaluation for one step's (B, N)
+    packets.
+
+    Outage if the helper is down when the packet arrives or when it would
+    start computing; degraded phases stretch the runtime (beta = a + eps/mu,
+    so (beta - a)/speed rescales the random part).  ``t_arr``/``t_sta``
+    must be clamped for unsent slots first, so no inf reaches the int cast
+    of the phase lookup (undefined on CUDA)."""
+    if outage_dist == "phase":
+        is_up = (sim._phase_lookup(dyn["up"], t_arr, period)
+                 & sim._phase_lookup(dyn["up"], t_sta, period))
+    else:
+        is_up = ~(sim._interval_hit(dyn["out_start"], dyn["out_end"], t_arr, window)
+                  | sim._interval_hit(dyn["out_start"], dyn["out_end"], t_sta, window)
+                  ).any(dim=-1)
+    if cell_on:
+        in_cell = dyn["cell_mask"] & (
+            sim._interval_hit(dyn["cell_start"], dyn["cell_end"], t_arr, window)
+            | sim._interval_hit(dyn["cell_start"], dyn["cell_end"], t_sta, window))
+        is_up = is_up & ~in_cell.any(dim=-1)
+    sp = sim._phase_lookup(dyn["speed"], t_sta, period)
+    beta_i = torch.where(sp == 1.0, beta_x, a + (beta_x - a) / sp)
+    lost = (drop | ~is_up) & sent
+    return beta_i, lost
+
+
+def _ge_params(ge_params):
+    """(p_bad, p_good, loss_good, loss_bad), each broadcastable against
+    (B, N): ``ge_params`` is (B, 4) (one class) or (B, 4, N) (per helper).
+    float32, so the comparisons below round as the reference's do."""
+    if ge_params.dim() == 2:
+        return tuple(ge_params[:, k, None] for k in range(4))
+    return tuple(ge_params[:, k] for k in range(4))
+
+
+def _ge_step(bad, ge_params, u_trans, u_loss, sent):
+    """Gilbert–Elliott: loss by the current state, then the per-packet state
+    transition (the chain advances even for packets already lost to an
+    outage: the radio fades regardless).  ``ge_params`` from
+    :func:`_ge_params`."""
+    p_bad, p_good, l_good, l_bad = ge_params
+    lost = (u_loss < torch.where(bad, l_bad, l_good)) & sent
+    bad_next = torch.where(bad, u_trans >= p_good, u_trans < p_bad)
+    return lost, bad_next
+
+
+def _hook_step(policy, pstate, ctx, churn: bool):
+    """One policy-hook round: receipt handling, pacing, and — under churn —
+    the loss reaction, applied as ``where(lost, tx_retx, tx_next)``."""
+    pstate = policy.on_computed(pstate, ctx)
+    tx_next = policy.next_load(pstate, ctx)
+    if churn:
+        pstate, tx_retx = policy.on_timeout(pstate, ctx, tx_next)
+        tx_next = torch.where(ctx.lost, tx_retx, tx_next)
+    return pstate, tx_next, policy.backoff(pstate)
+
 
 def _send_time_ids(sym_next, tx, sent):
     """Send-time coded-symbol assignment: rank each rep's sends of this step
@@ -94,11 +176,18 @@ def _decode_step(dec, t_hi, t_done, tables, ids, received, tr_ok):
 # The per-helper timeline loop (scenario dynamics x policy hooks)
 # ---------------------------------------------------------------------------
 
-def policy_stream(beta, d_up, d_ack, d_down, policy, cfg_static, aux=None):
+def policy_stream(beta, d_up, d_ack, d_down, policy, cfg_static,
+                  churn_static=None, dyn=None, a=None, aux=None):
     """Simulate M packets on every helper of every rep under ``policy``.
 
     beta/d_up/d_ack/d_down: (B, N, M) float32 tables.  cfg_static: the
     (Bx, Br, Back, alpha) tuple of :class:`~repro_torch.core.ccp.CCPConfig`.
+    churn_static: ``ChurnConfig.static_key()`` (or the reference's 5-tuple
+    or (period, max_backoff) 2-tuple of phase outages only), or None for
+    the static paper model; with it, ``dyn`` (from
+    :func:`repro_torch.core.simulator.draw_dynamics`, or
+    :func:`repro_torch.interop.dynamics_from_numpy`) and the runtime
+    offsets ``a`` (B, N) must be given.  aux: ``policy.prepare()`` output.
     Returns ``(outs, psummary)``: ``outs`` is the dict of (B, N, M) trace
     tensors (tr, idle, tx, arrive, beta, lost, backoff and, for a decoder
     policy, ``sym_id``, the global coded id each send carried) plus
@@ -109,24 +198,38 @@ def policy_stream(beta, d_up, d_ack, d_down, policy, cfg_static, aux=None):
     Timing model per packet (helper n, packet i):
       arrive_i = tx_i + d_up_i                      (uplink)
       start_i  = max(arrive_i, done_{i-1})          (FIFO helper queue)
-      done_i   = start_i + beta_i
-      Tr_i     = done_i + d_down_i                  (result downlink)
+      done_i   = start_i + beta_i                   (done_{i-1} if lost)
+      Tr_i     = done_i + d_down_i                  (inf if lost)
       RTTack_i = d_up_i + d_ack_i                   (receipt ACK, measured)
       idle_i   = max(0, arrive_i - done_{i-1})      (helper under-utilization)
+
+    The static path (``churn_static=None``) runs none of the churn branch's
+    operations.
     """
     Bx, Br, Back, alpha = cfg_static
     cfg = ccp_mod.CCPConfig(Bx=Bx, Br=Br, Back=Back, alpha=alpha)
     B, N, M = beta.shape
     dev = beta.device
     aux = {} if aux is None else aux
+    churn = churn_static is not None
+    ge_on = False
+    max_backoff = None
+    if churn:
+        (period, max_backoff, outage_dist, ge_on,
+         cell_on) = _parse_churn_static(churn_static)
+        window = period * dyn["speed"].shape[-1]
+        if ge_on:
+            ge_bad, ge_par = dyn["ge_bad0"], _ge_params(dyn["ge_params"])
     zero = torch.tensor(0.0)  # 0-d CPU scalar operand of torch.maximum
     tx = torch.zeros((B, N), device=dev)  # Tx_{n,1} = 0
     done_prev = torch.zeros((B, N), device=dev)
     tr_prev = torch.zeros((B, N), device=dev)
     pstate = policy.init((B, N), dev)
-    lost = torch.zeros((B, N), dtype=torch.bool, device=dev)
+    lost = torch.zeros((B, N), dtype=torch.bool, device=dev)  # static: never lost
     ones = torch.ones((B, N), device=dev)
     outs = {k: [] for k in ("tr", "idle", "tx", "arrive", "beta", "backoff")}
+    if churn:
+        outs["lost"] = []
     use_dec = bool(policy.uses_decoder)
     if use_dec:
         # The incremental peeling decoder rides the loop: prepare() put the
@@ -140,12 +243,29 @@ def policy_stream(beta, d_up, d_ack, d_down, policy, cfg_static, aux=None):
 
     for i in range(M):
         beta_i, up = beta[..., i], d_up[..., i]
+        # A policy may stop a helper's stream by emitting tx = +inf; unsent
+        # packets are non-events: no loss, no idle, no receipt.
         sent = torch.isfinite(tx)
         arrive = tx + up
         start = torch.maximum(arrive, done_prev)
+        if churn:
+            # Churn lookups run on clamped times: no inf reaches an index.
+            t_arr = torch.where(sent, arrive, 0.0)
+            t_sta = torch.where(sent, start, 0.0)
+            beta_i, lost = _churn_step(
+                dyn, a, beta_i, dyn["drop"][..., i], t_arr, t_sta, sent,
+                period=period, window=window, outage_dist=outage_dist,
+                cell_on=cell_on)
+            if ge_on:
+                lost_ge, ge_bad = _ge_step(ge_bad, ge_par, dyn["ge_u_trans"][..., i],
+                                           dyn["ge_u_loss"][..., i], sent)
+                lost = lost | lost_ge
         received = ~lost & sent
-        done = start + beta_i  # a static-path packet is never lost
+        done = start + beta_i
         tr_ok = done + d_down[..., i]
+        if churn:
+            # A lost packet never occupies the helper nor reaches the collector.
+            done = torch.where(lost, done_prev, done)
         tr = torch.where(received, tr_ok, torch.inf)
         idle = torch.where(received, torch.maximum(arrive - done_prev, zero), 0.0)
         rtt_ack = up + d_ack[..., i]
@@ -164,20 +284,21 @@ def policy_stream(beta, d_up, d_ack, d_down, policy, cfg_static, aux=None):
             i=i, n=N, tx=tx, arrive=arrive, start=start, beta=beta_i,
             tr_ok=tr_ok, lost=lost, received=received, rtt_ack=rtt_ack,
             d_up=up, d_down=d_down[..., i], d_ack=d_ack[..., i],
-            tr_prev=tr_prev, cfg=cfg, aux=aux, **dec_kw,
+            tr_prev=tr_prev, cfg=cfg, aux=aux, max_backoff=max_backoff, **dec_kw,
         )
-        pstate = policy.on_computed(pstate, ctx)
-        tx_next = policy.next_load(pstate, ctx)
-        b = policy.backoff(pstate)
+        pstate, tx_next, b = _hook_step(policy, pstate, ctx, churn)
         for k, v in (("tr", tr), ("idle", idle), ("tx", tx), ("arrive", arrive),
                      ("beta", torch.where(sent, beta_i, 0.0)),
                      ("backoff", ones if b is None else b)):
             outs[k].append(v)
+        if churn:
+            outs["lost"].append(lost)
         tr_prev = torch.where(received, tr_ok, tr_prev)
         tx, done_prev = tx_next, done
 
     res = {k: torch.stack(v, dim=-1) for k, v in outs.items()}
-    res["lost"] = torch.zeros((B, N, M), dtype=torch.bool, device=dev)
+    if not churn:
+        res["lost"] = torch.zeros((B, N, M), dtype=torch.bool, device=dev)
     res["tx_end"] = tx
     psum = policy.summary(pstate)
     if use_dec:
@@ -194,7 +315,8 @@ def policy_stream(beta, d_up, d_ack, d_down, policy, cfg_static, aux=None):
 @dataclasses.dataclass
 class Tables:
     """A batch's random draws: helper draws (B, N) and packet tables
-    (B, N, M), float32 on one device."""
+    (B, N, M), float32 on one device, and under churn the dynamics of
+    :func:`repro_torch.core.simulator.draw_dynamics` (None when static)."""
 
     mu: torch.Tensor
     a: torch.Tensor
@@ -203,13 +325,24 @@ class Tables:
     d_up: torch.Tensor
     d_ack: torch.Tensor
     d_down: torch.Tensor
+    dyn: Optional[dict] = None
+
+    def to(self, device) -> "Tables":
+        """The same tables (and dynamics) on ``device``."""
+        moved = {f.name: getattr(self, f.name).to(device)
+                 for f in dataclasses.fields(self) if f.name != "dyn"}
+        dyn = None if self.dyn is None else {k: v.to(device) for k, v in self.dyn.items()}
+        return Tables(**moved, dyn=dyn)
 
 
 def draw_tables(gen: torch.Generator, cfg, reps: int, R: int, M: int) -> Tables:
-    """Draw a batch's helpers, then its packet tables, from ``gen``."""
+    """Draw a batch's helpers, then its packet tables, then (under churn)
+    its dynamics, from ``gen``.  The dynamics come last, so a static and a
+    churn config draw the same helpers and packet tables from one seed."""
     mu, a, rate = sim.draw_helpers(gen, cfg, reps)
     beta, d_up, d_ack, d_down = sim.draw_packet_tables(gen, cfg, mu, a, rate, M, R)
-    return Tables(mu, a, rate, beta, d_up, d_ack, d_down)
+    dyn = None if cfg.churn is None else sim.draw_dynamics(gen, cfg, reps, M)
+    return Tables(mu, a, rate, beta, d_up, d_ack, d_down, dyn)
 
 
 def simulate(tables: Tables, cfg, R: int, policy) -> Dict[str, torch.Tensor]:
@@ -219,11 +352,18 @@ def simulate(tables: Tables, cfg, R: int, policy) -> Dict[str, torch.Tensor]:
     policy = _as_policy(policy)
     c = cfg.ccp_cfg(R)
     aux = policy.prepare(cfg, R, c, tables.mu, tables.a, tables.rate)
+    churn = cfg.churn is not None
+    if churn and tables.dyn is None:
+        raise ValueError("cfg has churn but the tables carry no dynamics")
     outs, psum = policy_stream(
         tables.beta, tables.d_up, tables.d_ack, tables.d_down, policy=policy,
-        cfg_static=(c.Bx, c.Br, c.Back, c.alpha), aux=aux)
+        cfg_static=(c.Bx, c.Br, c.Back, c.alpha),
+        churn_static=cfg.churn.static_key() if churn else None,
+        dyn=tables.dyn if churn else None, a=tables.a, aux=aux)
     kk = R + cfg.K(R)
-    t, valid = policy.finalize(outs, aux, cfg, R, kk, None)  # tx_end: churn only
+    # Under churn the last simulated Tr can be inf while the next send is
+    # finite: certify on the first unsimulated send (tx_end) instead.
+    t, valid = policy.finalize(outs, aux, cfg, R, kk, outs["tx_end"] if churn else None)
     tr, idle, beta = outs["tr"], outs["idle"], outs["beta"]
     mask = policy.packet_mask(aux, cfg.N, beta.shape[-1])
     if mask is not None:
@@ -236,11 +376,14 @@ def simulate(tables: Tables, cfg, R: int, policy) -> Dict[str, torch.Tensor]:
     # isfinite guard: when t is +inf (an uncompletable block-policy rep)
     # the inf sentinels in tr must not count as delivered packets.
     r_n = (torch.isfinite(tr) & (tr <= t[:, None, None])).sum(dim=-1)
-    # Loss rate over packets actually sent (0 on the static path).
+    # Loss rate over packets actually sent: a policy that stops a stream
+    # early must not have its never-sent tail dilute it (0 when static).
     n_sent = torch.isfinite(outs["tx"]).sum(dim=-1)
     m_steps = outs["lost"].shape[-1]
-    lost_frac = outs["lost"].float().mean(dim=-1) * (
-        m_steps / torch.clamp_min(n_sent, 1))
+    # The mean as XLA computes it, the sum times a float32 reciprocal.
+    inv_m = float(np.float32(1.0) / np.float32(m_steps))
+    lost_frac = (outs["lost"].float().sum(dim=-1) * inv_m) * sim._rdiv(
+        float(m_steps), torch.clamp_min(n_sent, 1).float())
     res = dict(T=t, valid=valid, efficiency=eff, r_n=r_n, mu=tables.mu,
                a=tables.a, rate=tables.rate,
                max_backoff=outs["backoff"].amax(dim=-1), lost_frac=lost_frac)
@@ -250,9 +393,13 @@ def simulate(tables: Tables, cfg, R: int, policy) -> Dict[str, torch.Tensor]:
 
 
 def _m_cap(cfg, kk: int, policy) -> int:
-    # Static: every helper streams back-to-back, so M = R+K always certifies.
+    # Static: every helper streams back-to-back, so M = R+K always
+    # certifies.  Under churn a helper's M packets can include losses;
+    # block policies must cover the largest assigned block: leave headroom.
     factor = policy.m_cap_factor
-    return (1 if factor is None else factor) * kk
+    if factor is None:
+        factor = 1 if cfg.churn is None else 4
+    return factor * kk
 
 
 def _initial_m(base_m: int, cfg, R: int, kk: int, cap: int, policy,

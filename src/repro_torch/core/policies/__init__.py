@@ -2,15 +2,18 @@
 
 Ported: ``ccp`` (Algorithm 1), ``best`` (oracle TTI), ``naive`` and
 ``naive_oracle`` (stop-and-wait, eq. 16), ``rateless_ccp`` (Algorithm 1
-with the decoder in the loop), and the block baselines ``uncoded_mean``,
-``uncoded_mu`` and ``hcmm``.  The reference's other policies are listed
+with the decoder in the loop), the block baselines ``uncoded_mean``,
+``uncoded_mu`` and ``hcmm``, and the churn policies ``adaptive_rate``
+(measured-loss code-rate adaptation) and ``adaptive_rate_fb`` (the same,
+stopping on decode success).  The reference's other policies are listed
 in ``base.NOT_PORTED`` with their ROADMAP slice.
 """
 
 from .base import RING, Policy, StepCtx, get, names, register  # noqa: F401
 
 # Importing the modules registers the built-ins.
-from . import best, ccp, hcmm, naive, rateless, uncoded  # noqa: F401, E402
+from . import adaptive_rate, best, ccp, hcmm, naive, rateless, uncoded  # noqa: F401, E402
+from .adaptive_rate import AdaptiveRatePolicy  # noqa: F401
 from .best import BestPolicy  # noqa: F401
 from .ccp import CCPPolicy  # noqa: F401
 from .hcmm import HCMMPolicy  # noqa: F401
@@ -19,5 +22,5 @@ from .rateless import RatelessCCPPolicy  # noqa: F401
 from .uncoded import UncodedPolicy  # noqa: F401
 
 __all__ = ["RING", "Policy", "StepCtx", "get", "names", "register",
-           "CCPPolicy", "BestPolicy", "HCMMPolicy", "NaivePolicy",
+           "AdaptiveRatePolicy", "CCPPolicy", "BestPolicy", "HCMMPolicy", "NaivePolicy",
            "RatelessCCPPolicy", "UncodedPolicy"]

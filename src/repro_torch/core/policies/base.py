@@ -2,13 +2,13 @@
 
 A :class:`Policy` packages everything that distinguishes one offloading
 strategy from another — when to send the next packet, how to react to a
-computed-packet receipt, and how to declare the task complete — while the
-*scenario dynamics* (helper draws, link/compute timing) stay in
-:mod:`repro_torch.core.engine`.  The engine's per-packet loop calls the
+computed-packet receipt or a loss, and how to declare the task complete —
+while the *scenario dynamics* (helper draws, link/compute timing, churn)
+stay in :mod:`repro_torch.core.engine`.  The engine's per-packet loop calls the
 hooks with a :class:`StepCtx` whose tensors carry a leading rep dimension,
 ``(B, N)``, in place of the reference's ``vmap``.
 
-Protocol (port of ``repro.core.policies.base``, static path):
+Protocol (port of ``repro.core.policies.base``):
 
 ``prepare(cfg, R, ccp_cfg, mu, a, rate) -> aux``
     Per-rep auxiliary dict computed once before the stream from the helper
@@ -20,9 +20,9 @@ Protocol (port of ``repro.core.policies.base``, static path):
 ``next_load(state, ctx) -> tx_next``
     The pacing decision: the send time of packet ``i+1`` per helper.
 ``on_timeout(state, ctx, tx_next) -> (state, tx_retx)``
-    Only invoked under churn (a later slice; the static path never loses a
-    packet).  React to lost packets and return the retransmission send
-    time.  Default: no reaction.
+    Only invoked under churn.  React to lost packets (``ctx.lost``) and
+    return the retransmission send time; the engine applies it as
+    ``where(lost, tx_retx, tx_next)``.  Default: no reaction.
 ``finalize(outs, aux, cfg, R, kk, tx_end) -> (T, valid)``
     Completion rule.  Default: the fountain-coded (R+K)-th order statistic
     (:func:`repro_torch.core.simulator.completion_time`).  ``tx_end`` is
@@ -75,8 +75,6 @@ RING = 16  # ring-buffer slots for in-flight (Tr, TTI) pairs
 # Reference policies still to be ported, with the ROADMAP item that brings
 # each (queue 1 of ROADMAP.md).
 NOT_PORTED = {
-    "adaptive_rate": "B2, churn slice (ChurnConfig and the churn machinery)",
-    "adaptive_rate_fb": "B2, churn slice (subclasses adaptive_rate)",
     "tfrc_ccp": "B3, transport slice (core/transport/)",
 }
 
@@ -93,9 +91,9 @@ class StepCtx:
     tx: torch.Tensor        # send time of packet i
     arrive: torch.Tensor    # uplink arrival time
     start: torch.Tensor     # compute start (FIFO queue)
-    beta: torch.Tensor      # runtime
+    beta: torch.Tensor      # effective runtime (churn-scaled)
     tr_ok: torch.Tensor     # result-arrival time if not lost
-    lost: torch.Tensor      # bool: packet lost (always False on the static path)
+    lost: torch.Tensor      # bool: packet lost (churn; always False when static)
     received: torch.Tensor  # bool: sent and not lost
     rtt_ack: torch.Tensor   # receipt-ACK RTT sample
     d_up: torch.Tensor      # uplink delay of packet i
@@ -104,6 +102,7 @@ class StepCtx:
     tr_prev: torch.Tensor   # Tr of the previous *received* packet
     cfg: object             # repro_torch.core.ccp.CCPConfig
     aux: dict               # policy.prepare() output
+    max_backoff: Optional[float] = None  # churn backoff cap (None when static)
     # Decoder feedback (filled only when policy.uses_decoder; else None),
     # each (B,): it reflects every result absorbed through step i.
     decoded_count: Optional[torch.Tensor] = None  # i32 recovered sources
@@ -122,7 +121,7 @@ class Policy:
 
     name: str = "base"
     version: int = 1
-    #: horizon-cap multiple of R+K (None -> engine default: 1 on the static path)
+    #: horizon-cap multiple of R+K (None -> engine default: 1 static / 4 churn)
     m_cap_factor: Optional[int] = None
     #: True -> the engine runs the incremental peeling decoder in the loop
     #: and fills StepCtx.decoded_count/ripple/decode_done/decode_t_done.

@@ -7,9 +7,8 @@ estimator, so it cannot adapt the timer per helper).
 ``naive_oracle``: the same stop-and-wait stream with a per-helper *oracle*
 timer built from the true mean runtime and link rate.
 
-Port of ``repro.core.policies.naive``.  On the static path the timer never
-fires (``on_timeout`` runs only under churn, a later slice), but it is
-computed and ported with the reference's signature.
+Port of ``repro.core.policies.naive``.  The timer fires only under churn
+(``on_timeout``); on the static path no packet is lost.
 """
 
 from __future__ import annotations

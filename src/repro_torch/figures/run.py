@@ -4,6 +4,8 @@
   fig4        delay vs rows, mu in {1,3,9} (paper Fig. 4)
   fig5        CCP vs best/naive gaps on slow links (paper Fig. 5)
   efficiency  measured vs eq. (12) efficiency (paper §6 table)
+  fig_churn   delay under churn: i.i.d., burst and cell-outage sweeps
+  fig_decode  measured LT decode overhead vs i.i.d. loss
 
 Everything, on the card:  PYTHONPATH=src python -m repro_torch.figures.run
 Subset:                   PYTHONPATH=src python -m repro_torch.figures.run --only fig3,fig5
@@ -19,7 +21,7 @@ from __future__ import annotations
 import argparse
 
 from ..core import policies as policy_registry
-from . import efficiency, fig3, fig4, fig5
+from . import efficiency, fig3, fig4, fig5, fig_churn, fig_decode
 
 
 def main(argv=None) -> dict:
@@ -32,7 +34,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     ap.add_argument("--out", default=None, help="output directory of the JSON files")
     ap.add_argument("--policies", default=None,
-                    help="comma-separated registered policies for fig3/fig4/fig5")
+                    help="comma-separated registered policies for fig3/fig4/fig5/fig_churn")
     args = ap.parse_args(argv)
 
     common = dict(device=args.device, out_dir=args.out)
@@ -50,6 +52,13 @@ def main(argv=None) -> dict:
             "fig4": lambda: fig4.run(reps=reps, r_sweep=(500,), **fig_kw),
             "fig5": lambda: fig5.run(reps=reps, r_sweep=(200, 400), **fig_kw),
             "efficiency": lambda: efficiency.run(reps=reps, R=400, **common),
+            # Each sweep's end points at a tenth of the figure's width.
+            "fig_churn": lambda: fig_churn.run(
+                reps=reps, R=100, n_helpers=10, **fig_kw,
+                sweeps={k: ((ax[0], ax[-1]), mk, name)
+                        for k, (ax, mk, name) in fig_churn.SWEEPS.items()}),
+            "fig_decode": lambda: fig_decode.run(reps=reps, sweep=(0.0, 0.2), R=100,
+                                                 n_helpers=10, offline_trials=2, **common),
         }
     else:
         reps = {} if args.reps is None else dict(reps=args.reps)
@@ -58,6 +67,8 @@ def main(argv=None) -> dict:
             "fig4": lambda: fig4.run(**reps, **fig_kw),
             "fig5": lambda: fig5.run(**reps, **fig_kw),
             "efficiency": lambda: efficiency.run(**reps, **common),
+            "fig_churn": lambda: fig_churn.run(**reps, **fig_kw),
+            "fig_decode": lambda: fig_decode.run(**reps, **common),
         }
     only = args.only.split(",") if args.only else list(jobs)
     unknown = set(only) - set(jobs)

@@ -3,9 +3,9 @@
 The port cannot reproduce ``jax.random`` draws, and its numpy code
 construction is a copy, so these constructors let a test hand the port the
 exact objects the reference built: an LT code or a coded-matmul plan from
-the reference's tables, helper/packet tables the reference drew (in this
-system they play the part that model weights play elsewhere), and the
-reference's LM parameter tree.
+the reference's tables, helper/packet tables and churn dynamics the
+reference drew (in this system they play the part that model weights play
+elsewhere), and the reference's LM parameter tree.
 """
 
 from __future__ import annotations
@@ -17,8 +17,8 @@ from . import _device
 from .core import engine, fountain
 from .core.coded_matmul import CodedMatmulPlan
 
-__all__ = ["lm_params_from_numpy", "lt_code_from_arrays", "plan_from_arrays",
-           "tables_from_numpy"]
+__all__ = ["dynamics_from_numpy", "lm_params_from_numpy", "lt_code_from_arrays",
+           "plan_from_arrays", "tables_from_numpy"]
 
 
 def lt_code_from_arrays(idx, mask, coef, R: int, K: int) -> fountain.LTCode:
@@ -44,9 +44,10 @@ def plan_from_arrays(idx, mask, coef, R: int, K: int, n_shards: int,
 
 
 def tables_from_numpy(mu, a, rate, beta, d_up, d_ack, d_down,
-                      device=None) -> engine.Tables:
+                      device=None, dyn=None) -> engine.Tables:
     """Engine tables from reference draws: helper arrays (B, N) and packet
-    tables (B, N, M), cast to float32 on ``device`` (CUDA by default).
+    tables (B, N, M), cast to float32 on ``device`` (CUDA by default), and
+    churn dynamics ``dyn`` through :func:`dynamics_from_numpy` when given.
 
     The cast matters: a float64 numpy array would stay float64 in torch
     and break parity with the reference, whose tables are float32."""
@@ -56,11 +57,31 @@ def tables_from_numpy(mu, a, rate, beta, d_up, d_ack, d_down,
         return torch.as_tensor(np.asarray(v, dtype=np.float32), device=dev)
 
     tables = engine.Tables(t(mu), t(a), t(rate), t(beta), t(d_up), t(d_ack),
-                           t(d_down))
+                           t(d_down), None if dyn is None else dynamics_from_numpy(dyn, dev))
     if tables.mu.dim() != 2 or tables.beta.dim() != 3:
         raise ValueError("need helper arrays (B, N) and packet tables (B, N, M); "
                          f"got {tuple(tables.mu.shape)} and {tuple(tables.beta.shape)}")
     return tables
+
+
+def dynamics_from_numpy(dyn, device=None) -> dict:
+    """Churn dynamics from reference draws: a dict of arrays stacked over
+    reps (a leading B on every table, as :func:`repro_torch.core.simulator
+    .draw_dynamics` returns them), or a sequence of the reference's per-rep
+    ``draw_dynamics`` dicts, which are stacked here.  Booleans stay bool,
+    integers become int32 and floats float32, on ``device`` (CUDA by
+    default): ``ge_params`` must be float32, or the loss comparisons would
+    promote and move losses at the edges."""
+    dev = _device.resolve(device)
+    if not isinstance(dyn, dict):
+        dyn = {k: np.stack([np.asarray(d[k]) for d in dyn]) for k in dyn[0]}
+
+    def t(v):
+        v = np.asarray(v)
+        dtype = {"b": bool, "i": np.int32, "u": np.int32}.get(v.dtype.kind, np.float32)
+        return torch.as_tensor(np.ascontiguousarray(v, dtype=dtype), device=dev)
+
+    return {k: t(v) for k, v in dyn.items()}
 
 
 def lm_params_from_numpy(cfg, tree, device=None) -> dict:

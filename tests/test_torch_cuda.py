@@ -762,8 +762,6 @@ def test_fountain_decode_and_recover_on_the_card_match_the_cpu_route(card):
 # The block baselines' control plane: no kernel of its own, but its loads
 # come from sums and a float32 Newton solve whose bits must not depend on
 # the device (one ulp can move a largest-remainder tie).
-import dataclasses  # noqa: E402
-
 from repro_torch.configs.ccp_paper import FIG3, FIG4  # noqa: E402
 from repro_torch.core import engine as eng_pt  # noqa: E402
 from repro_torch.core import simulator as sim_pt  # noqa: E402
@@ -779,8 +777,7 @@ def test_block_policy_on_the_card_equals_the_cpu(card, policy, N, scenario):
     loads bitwise, T at rtol 1e-6, r_n and valid equal."""
     cfg, R = sim_pt.ScenarioConfig(N=N, scenario=scenario), 400 if N == 20 else 2000
     tables = eng_pt.draw_tables(torch.Generator().manual_seed(N + scenario), cfg, 8, R, 128)
-    on_card = eng_pt.Tables(*(getattr(tables, f.name).to(card)
-                              for f in dataclasses.fields(tables)))
+    on_card = tables.to(card)
     cpu = eng_pt.simulate(tables, cfg, R, policy)
     gpu = eng_pt.simulate(on_card, cfg, R, policy)
     assert torch.equal(gpu["x_loads"].cpu(), cpu["x_loads"])
@@ -806,3 +803,61 @@ def test_block_allocations_on_the_card_equal_the_cpu(card, cfg, R):
         pol = uncoded_pt.UncodedPolicy(rule=rule)
         assert torch.equal(pol.prepare(cfg, R, None, mu.to(card), a.to(card), None)["loads"].cpu(),
                            pol.prepare(cfg, R, None, mu, a, None)["loads"])
+
+
+# The churn branch of the engine: no kernel of its own; the card's loop
+# must lose, resend and complete exactly as the CPU's on the same tables.
+CHURN_POLICIES = ["ccp", "best", "naive", "naive_oracle", "uncoded_mean", "uncoded_mu",
+                  "hcmm", "rateless_ccp", "adaptive_rate", "adaptive_rate_fb"]
+
+
+def _golden_churn_cfg(N=16):
+    """The churn golden's config (tests/test_policies.py): lognormal
+    outages, slowdowns, i.i.d. drop, Gilbert–Elliott and cell outages."""
+    return sim_pt.ScenarioConfig(N=N, scenario=1, churn=sim_pt.ChurnConfig(
+        period=5.0, p_down=0.1, p_slow=0.2, drop_prob=0.05, ge_p_bad=0.02, ge_p_good=0.2,
+        ge_loss_bad=0.5, p_cell=0.1, cell_frac=0.5, outage_dist="lognormal",
+        outage_mean=4.0, outage_sigma=0.5, max_backoff=8.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", CHURN_POLICIES)
+def test_churn_engine_on_the_card_equals_the_cpu(card, policy):
+    """One set of churn tables through the loop and ``simulate`` on the
+    card and on the CPU: the lost, tx and tr traces, T, r_n, valid,
+    max_backoff and lost_frac bit for bit; efficiency at rtol 1e-6 (its
+    sums over M run in another order)."""
+    cfg, R, M = _golden_churn_cfg(), 200, 840
+    tables = eng_pt.draw_tables(torch.Generator().manual_seed(1), cfg, 4, R, M)
+    on_card = tables.to(card)
+    c = cfg.ccp_cfg(R)
+    pol = eng_pt._as_policy(policy)
+    traces = [eng_pt.policy_stream(
+        t.beta, t.d_up, t.d_ack, t.d_down, policy=pol, cfg_static=(c.Bx, c.Br, c.Back, c.alpha),
+        churn_static=cfg.churn.static_key(), dyn=t.dyn, a=t.a,
+        aux=pol.prepare(cfg, R, c, t.mu, t.a, t.rate))[0] for t in (tables, on_card)]
+    for k in ("lost", "tx", "tr", "tx_end"):
+        assert torch.equal(traces[1][k].cpu(), traces[0][k]), k
+    cpu = eng_pt.simulate(tables, cfg, R, policy)
+    gpu = eng_pt.simulate(on_card, cfg, R, policy)
+    for k in ("T", "r_n", "valid", "max_backoff", "lost_frac"):
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
+    torch.testing.assert_close(gpu["efficiency"].cpu(), cpu["efficiency"], rtol=1e-6,
+                               atol=1e-7, equal_nan=True)
+    assert bool(cpu["lost_frac"].gt(0).any())
+
+
+@pytest.mark.gpu
+def test_churn_figures_smoke_on_the_card(card, tmp_path):
+    """``fig_churn`` and ``fig_decode`` in their smoke sizes on the card:
+    every policy column, the card's name in the artifact's meta."""
+    import json
+
+    from repro_torch.figures import run as figures_run
+
+    out = figures_run.main(["--smoke", "--only", "fig_churn,fig_decode", "--out", str(tmp_path)])
+    assert set(out) == {"fig_churn", "fig_decode"}
+    for name in out:
+        doc = json.loads((tmp_path / f"{name}.json").read_text())
+        assert doc["meta"]["device"]["type"] == "cuda" and doc["meta"]["device"]["nvidia_smi"]
+        assert doc["data"]

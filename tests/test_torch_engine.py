@@ -253,8 +253,9 @@ def test_engine_refusals():
         eng.run(cfg, "tfrc_ccp", 2, 100)
     with pytest.raises(ValueError, match="R must be"):
         eng.run(cfg, "ccp", 2, 0)
+    # churn is ported; its transport knobs (rtt_dist != "off") are not
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim_pt.ScenarioConfig(churn=sim_jax.ChurnConfig(p_down=0.1))
+        sim_pt.ScenarioConfig(churn=sim_pt.ChurnConfig(rtt_dist="fixed", rtt_mean=0.1))
     with pytest.raises(NotImplementedError, match="second card"):
         eng_pt.Engine(device="cpu", shard=True)
     # every reference policy is either ported or listed as still to port

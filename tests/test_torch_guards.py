@@ -41,6 +41,10 @@ res = quickstart.rateless_vs_ccp(device="cpu", R=100, reps=2)
 assert res["certified"], res
 res = quickstart.ccp_vs_baselines(device="cpu", R=300, reps=2)
 assert all(res["valid"].values()), res
+from repro_torch.core import engine, simulator
+churn = simulator.ScenarioConfig(N=8, churn=simulator.ChurnConfig(drop_prob=0.1, p_down=0.1))
+res = engine.Engine(device="cpu").run(churn, "adaptive_rate_fb", 2, 60)
+assert bool(res.valid.any()) and float(res.lost_frac.max()) > 0, res
 from repro_torch.launch import serve
 out = serve.main(["--arch", "phi4-mini-3.8b", "--smoke", "--device", "cpu", "--requests", "3",
                   "--batch", "2", "--prompt-len", "6", "--new-tokens", "3", "--max-len", "16",
@@ -93,6 +97,10 @@ def test_default_device_is_cuda_and_entry_points_refuse_without_a_card():
         baselines.run_hcmm(cfg, 20)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         figures_run.main(["--smoke", "--only", "fig5"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        figures_run.main(["--smoke", "--only", "fig_churn,fig_decode"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interop.dynamics_from_numpy({"drop": np.zeros((1, 4, 2), bool)})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_launch.main(["--arch", "phi4-mini-3.8b", "--smoke"])
     model = build_model(get_config("phi4-mini-3.8b", smoke=True))
