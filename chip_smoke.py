@@ -13,7 +13,9 @@ paper's Figs. 3-5 and its efficiency table at their full sweeps; the
 rateless path: the LT payload round trip on
 K2 and K3 and the rateless CCP control plane with the decoder in the loop;
 churn: the loop's losses and timeouts on the card against the CPU, and the
-churn figures fig_churn and fig_decode at their full sweeps;
+churn figures fig_churn and fig_decode at their full sweeps; transport and
+fleet: the feedback-delay loop and the multi-tenant fleet loop on the card
+against the CPU, and fig_transport and fig_fleet at their full sweeps;
 LM serving: phi4-mini-3.8b at its full published size through
 ``ServeEngine.generate``, attention on K4, then CCP dispatch over two
 replicas and the card against the CPU), checks the results, and prints one
@@ -1088,7 +1090,8 @@ def _kernel_launches() -> dict:
 
 
 def _no_kernel_between(before: dict, label: str) -> None:
-    """The churn paths are the control plane: no kernel of the port runs."""
+    """The churn, transport and fleet paths are the control plane: no
+    kernel of the port runs."""
     delta = {k: v - before[k] for k, v in _kernel_launches().items()}
     if any(delta.values()):
         raise AssertionError(f"{label} launched kernels: {delta}")
@@ -1145,19 +1148,21 @@ def churn_card_vs_cpu(dev) -> None:
         raise AssertionError(f"a policy lost no packet under churn: {lost}")
 
 
-def _check_orderings(name: str, row: dict, ref: dict, policies, where: str) -> int:
-    """Assert on the port's row every ordering of two policies' means that
-    the reference artifact's row shows with a margin; returns the count."""
+def _check_orderings(name: str, row: dict, ref: dict, policies, where: str,
+                     stat: str = "mean") -> int:
+    """Assert on the port's row every ordering of two policies' ``stat``
+    (the mean, or fig_fleet's p50 and p99) that the reference artifact's
+    row shows with a margin; returns the count."""
     n = 0
     for p in policies:
         for q in policies:
-            if p in ref and q in ref and ref[p]["mean"] < (1 - ORDER_MARGIN) * ref[q]["mean"]:
+            if p in ref and q in ref and ref[p][stat] < (1 - ORDER_MARGIN) * ref[q][stat]:
                 n += 1
-                if not row[p]["mean"] < row[q]["mean"]:
+                if not row[p][stat] < row[q][stat]:
                     raise AssertionError(
-                        f"{name} {where}: the reference has {p} below {q} "
-                        f"({ref[p]['mean']:.3f} < {ref[q]['mean']:.3f}), the port "
-                        f"{row[p]['mean']:.3f} >= {row[q]['mean']:.3f}")
+                        f"{name} {where}: the reference has {p}'s {stat} below {q}'s "
+                        f"({ref[p][stat]:.3f} < {ref[q][stat]:.3f}), the port "
+                        f"{row[p][stat]:.3f} >= {row[q][stat]:.3f}")
     return n
 
 
@@ -1242,6 +1247,205 @@ def churn_control_plane(dev) -> None:
               T_mean=f"{t_mean:.4f}", lost_frac=f"{float(res.lost_frac.mean()):.4f}",
               wall_s=f"{wall:.3f}", host_syncs=peeling.host_syncs)
     _no_kernel_between(before, "churn-control-plane")
+
+
+# The transport line on the card against the CPU: tests/test_transport.py's
+# churn mix (outages, slowdowns, drop, Gilbert–Elliott, cell outages) under
+# log-normal feedback RTT, at R=60 and the churn cap 4(R+K).
+TRANSPORT_CARD_VS_CPU = dict(N=16, R=60, M=252, reps=4, rtt_mean=2.0)
+# The fleet loop on the card against the CPU: 3 tenants on 12 helpers, 6
+# recruits each (striped, overlapping), under the same churn and transport.
+FLEET_CARD_VS_CPU = dict(N=12, R=60, M=128, reps=4, n_tasks=3, helpers_per_task=6,
+                         policies=("ccp", "tfrc_ccp", "rateless_ccp", "hcmm"))
+
+
+def _transport_churn(rtt_mean: float):
+    from repro_torch.core import simulator
+
+    return simulator.ChurnConfig(
+        period=5.0, p_down=0.1, p_slow=0.2, drop_prob=0.05, ge_p_bad=0.03, ge_p_good=0.25,
+        ge_loss_bad=0.5, p_cell=0.05, cell_frac=0.5, max_backoff=8.0,
+        rtt_dist="lognormal", rtt_mean=rtt_mean)
+
+
+def _equal_or_raise(label: str, gpu: dict, cpu: dict, exact, close=()) -> None:
+    import torch
+
+    for k in exact:
+        g, c = gpu[k].cpu(), cpu[k]
+        same = (g == c) | (g.isnan() & c.isnan()) if c.is_floating_point() else g == c
+        if g.shape != c.shape or g.dtype != c.dtype or not bool(same.all()):
+            raise AssertionError(f"{label}: {k} differs between card and CPU "
+                                 f"({int((~same).sum())} entries)")
+    for k in close:
+        torch.testing.assert_close(gpu[k].cpu(), cpu[k], rtol=1e-6, atol=1e-7, equal_nan=True)
+
+
+def transport_card_vs_cpu(dev) -> None:
+    """The transport loop on the card against the CPU on one set of tables:
+    every registered policy's traces (lost, tx, tr, idle, backoff, tx_end,
+    sym_id) and the results extracted from them (T, r_n, valid,
+    max_backoff, lost_frac) bit for bit, efficiency at rtol 1e-6 (its sums
+    run in another order on each device)."""
+    import torch
+    from repro_torch.core import engine, policies, simulator
+
+    c = TRANSPORT_CARD_VS_CPU
+    cfg = simulator.ScenarioConfig(N=c["N"], scenario=1, churn=_transport_churn(c["rtt_mean"]))
+    R = c["R"]
+    tables = engine.draw_tables(torch.Generator().manual_seed(2), cfg, c["reps"], R, c["M"])
+    on_card = tables.to(dev)
+    cc = cfg.ccp_cfg(R)
+    before = _kernel_launches()
+    t0 = time.perf_counter()
+    names = policies.names()
+    lost, p_ev = {}, 0.0
+    for name in names:
+        pol = engine._as_policy(name)
+        got = []
+        for t in (tables, on_card):
+            aux = pol.prepare(cfg, R, cc, t.mu, t.a, t.rate)
+            outs, psum = engine.policy_stream(
+                t.beta, t.d_up, t.d_ack, t.d_down, policy=pol,
+                cfg_static=(cc.Bx, cc.Br, cc.Back, cc.alpha),
+                churn_static=cfg.churn.static_key(), dyn=t.dyn, a=t.a, aux=aux)
+            stats = engine._task_stats(outs, aux, cfg, R, pol, outs["tx_end"])
+            got.append(dict(outs, **stats, **{f"x_{k}": v for k, v in psum.items()}))
+        _equal_or_raise(f"transport {name}", got[1], got[0],
+                        [k for k in got[0] if k != "efficiency"], close=("efficiency",))
+        lost[name] = int(got[0]["lost"].sum())
+        if name == "tfrc_ccp":
+            p_ev = float(got[0]["x_p_ev"].max())
+    _no_kernel_between(before, "transport-card-vs-cpu")
+    phase("transport-card-vs-cpu", cfg="test_transport CHURN + lognormal RTT", N=c["N"], R=R,
+          M=c["M"], reps=c["reps"], rtt_mean=c["rtt_mean"], policies=",".join(names),
+          lost=",".join(str(v) for v in lost.values()), tfrc_p_ev_max=f"{p_ev:.4f}",
+          equal="every trace,T,r_n,valid,max_backoff,lost_frac,summary",
+          wall_s=f"{time.perf_counter() - t0:.3f}")
+    if not all(lost.values()) or not p_ev > 0:
+        raise AssertionError(f"no loss under the transport churn mix: {lost}, p_ev {p_ev}")
+
+
+def transport_figure_on_card(dev) -> None:
+    """fig_transport at the reference figure script's defaults (N=50, R=1000, 40
+    reps, the iid/burst/cell regimes x RTT 0, 0.25, 1, 4, ccp tfrc_ccp
+    best), one line a row beside the artifact's means; asserts every
+    ordering the artifact shows with a 5% margin (ORDER_MARGIN) and that
+    ``best``, which reads no feedback, is the same at every RTT."""
+    from repro_torch.figures import fig_transport
+
+    before = _kernel_launches()
+    out = fig_transport.run(device=dev, out_dir=FIGURES_OUT)
+    _no_kernel_between(before, "fig_transport")
+    ref = {(r["sweep"], r["rtt_mean"]): r for r in _reference_rows("fig_transport")}
+    pols = fig_transport.POLICIES
+    checked = 0
+    for row in out["rows"]:
+        r = ref[(row["sweep"], row["rtt_mean"])]
+        phase("fig_transport", sweep=row["sweep"], rtt_mean=row["rtt_mean"], reps=40,
+              invalid=_invalid(row, pols), M=",".join(str(row[p]["M"]) for p in pols),
+              **{p: f"{row[p]['mean']:.4f}" for p in pols},
+              **{f"ref_{p}": f"{r[p]['mean']:.4f}" for p in pols},
+              **{f"eff_{p}": f"{row[p]['efficiency']:.4f}" for p in pols},
+              ref_invalid=_invalid(r, pols))
+        checked += _check_orderings("fig_transport", row, r, pols,
+                                    f"{row['sweep']} rtt={row['rtt_mean']}")
+    for regime in fig_transport.REGIMES:
+        best = {row["best"]["mean"] for row in out["rows"] if row["sweep"] == regime}
+        if len(best) != 1:
+            raise AssertionError(f"fig_transport {regime}: best is not flat across RTT: {best}")
+    phase("fig_transport", orderings_checked=checked, best_flat="yes",
+          wall_s=f"{out['wall_s']:.3f}",
+          regime_wall_s=",".join(f"{k}={v:.3f}" for k, v in out["regime_wall_s"].items()),
+          summary=",".join(f"{k}={v:.4f}" for k, v in out["summary"].items()),
+          out=(FIGURES_OUT / "fig_transport.json").relative_to(ROOT))
+
+
+def fleet_card_vs_cpu(dev) -> None:
+    """The fleet loop on the card against the CPU on one set of fleet
+    tables, under churn and transport, for ccp, tfrc_ccp, rateless_ccp and
+    hcmm under FIFO, priority and processor sharing: every trace (tr, idle,
+    tx, lost, backoff, queue_delay, contention, tx_end, busy_end, sym_id)
+    and T, sojourn, valid, r_n, max_backoff, lost_frac, makespan and
+    fairness bit for bit; efficiency and utilization at rtol 1e-6 (sums in
+    another order on each device)."""
+    import torch
+    from repro_torch.core import engine, fleet, simulator
+
+    c = FLEET_CARD_VS_CPU
+    cfg = simulator.ScenarioConfig(N=c["N"], scenario=1, churn=_transport_churn(1.0))
+    R = c["R"]
+    before = _kernel_launches()
+    t0 = time.perf_counter()
+    contention = 0
+    for discipline in fleet.DISCIPLINES:
+        fc = fleet.FleetConfig(n_tasks=c["n_tasks"], discipline=discipline, placement="striped",
+                               helpers_per_task=c["helpers_per_task"])
+        tables = engine.draw_fleet_tables(torch.Generator().manual_seed(4), cfg, fc, c["reps"],
+                                          R, c["M"])
+        on_card = tables.to(dev)
+        cc = cfg.ccp_cfg(R)
+        for name in c["policies"]:
+            pol = engine._as_policy(name)
+            per_task = pol.fleet_aux == "per_task"
+            traces, results = [], []
+            for t in (tables, on_card):
+                aux = (pol.prepare_fleet(cfg, R, cc, t.mu, t.a, t.rate, t.recruit) if per_task
+                       else pol.prepare(cfg, R, cc, t.mu, t.a, t.rate))
+                traces.append(fleet.fleet_stream(
+                    t.beta, t.d_up, t.d_ack, t.d_down, t.release, t.recruit, t.prio,
+                    policy=pol, cfg_static=(cc.Bx, cc.Br, cc.Back, cc.alpha),
+                    fleet_static=discipline, churn_static=cfg.churn.static_key(), dyn=t.dyn,
+                    a=t.a, aux=aux, aux_task_axis=per_task)[0])
+                results.append(engine.simulate_fleet(t, cfg, R, pol, fc))
+            label = f"fleet {name} {discipline}"
+            _equal_or_raise(label, traces[1], traces[0], list(traces[0]))
+            _equal_or_raise(label, results[1], results[0],
+                            [k for k in results[0] if k not in ("efficiency", "util")],
+                            close=("efficiency", "util"))
+            contention = max(contention, int(traces[0]["contention"].max()))
+    _no_kernel_between(before, "fleet-card-vs-cpu")
+    phase("fleet-card-vs-cpu", cfg="test_transport CHURN + lognormal RTT 1.0", N=c["N"], R=R,
+          M=c["M"], reps=c["reps"], n_tasks=c["n_tasks"], placement="striped",
+          helpers_per_task=c["helpers_per_task"], policies=",".join(c["policies"]),
+          disciplines=",".join(fleet.DISCIPLINES), max_contention=contention,
+          equal="traces,queue_delay,contention,T,sojourn,valid,r_n,max_backoff,lost_frac,"
+                "makespan,fairness", wall_s=f"{time.perf_counter() - t0:.3f}")
+    if contention < 2:
+        raise AssertionError("no tenant queued behind another in fleet-card-vs-cpu")
+
+
+def fleet_figure_on_card(dev) -> None:
+    """fig_fleet at the reference figure script's defaults (N=20, R=300, 40 reps,
+    1-12 tasks, 5 helpers a task, striped, FIFO, ccp adaptive_rate hcmm
+    naive), one line a row with p50/p99 sojourn beside the artifact's;
+    asserts every ordering of p50 and of p99 the artifact shows with a 5%
+    margin.  Sojourns are simulated seconds."""
+    from repro_torch.figures import fig_fleet
+
+    before = _kernel_launches()
+    out = fig_fleet.run(device=dev, out_dir=FIGURES_OUT)
+    _no_kernel_between(before, "fig_fleet")
+    ref = {r["n_tasks"]: r for r in _reference_rows("fig_fleet")}
+    pols = fig_fleet.POLICIES
+    checked = 0
+    for row in out["rows"]:
+        r = ref[row["n_tasks"]]
+        phase("fig_fleet", n_tasks=row["n_tasks"], offered=row["offered"], reps=40,
+              invalid=_invalid(row, pols), M=",".join(str(row[p]["M"]) for p in pols),
+              **{f"p50_{p}": f"{row[p]['p50']:.4f}" for p in pols},
+              **{f"ref_p50_{p}": f"{r[p]['p50']:.4f}" for p in pols},
+              **{f"p99_{p}": f"{row[p]['p99']:.4f}" for p in pols},
+              **{f"ref_p99_{p}": f"{r[p]['p99']:.4f}" for p in pols},
+              util_ccp=f"{row['ccp']['util_mean']:.4f}",
+              ref_util_ccp=f"{r['ccp']['util_mean']:.4f}", ref_invalid=_invalid(r, pols))
+        for stat in ("p50", "p99"):
+            checked += _check_orderings("fig_fleet", row, r, pols,
+                                        f"n_tasks={row['n_tasks']}", stat=stat)
+    phase("fig_fleet", orderings_checked=checked, wall_s=f"{out['wall_s']:.3f}",
+          row_wall_s=",".join(f"{k}={v:.3f}" for k, v in out["row_wall_s"].items()),
+          knee=",".join(f"{k}={v:.4f}" for k, v in out["knee"].items()),
+          out=(FIGURES_OUT / "fig_fleet.json").relative_to(ROOT))
 
 
 def _qkv(dev, gen, B, Hq, Hkv, Tq, Tk, D, dtype):
@@ -1762,6 +1966,14 @@ def main() -> int:
     churn_card_vs_cpu(dev)
     churn_figures_on_card(dev)
     churn_control_plane(dev)
+
+    # 8c. Transport and fleet (the control plane, no kernel): the transport
+    # loop and the fleet loop on the card against the CPU, and fig_transport
+    # and fig_fleet at the reference figure scripts' defaults.
+    transport_card_vs_cpu(dev)
+    transport_figure_on_card(dev)
+    fleet_card_vs_cpu(dev)
+    fleet_figure_on_card(dev)
 
     # 9.-11. LM serving: K4 against its plain version, K4 at the serving
     # path's shapes, then phi4-mini-3.8b at full size through the engine

@@ -2,8 +2,9 @@
 fountain-coded cooperative computation with dynamic, heterogeneity-aware
 task allocation — ported to PyTorch.
 
-Simulation entry point: :class:`repro_torch.core.engine.Engine`; coded
+Simulation entry point: :class:`repro_torch.core.engine.Engine` (``run``,
+and ``run_fleet`` for tenants sharing one pool); coded
 matmul: :mod:`repro_torch.core.coded_matmul` (imported on its own, as it
 pulls in the kernels)."""
 
-from . import ccp, decode, engine, fountain, policies, simulator, theory  # noqa: F401
+from . import ccp, decode, engine, fleet, fountain, policies, simulator, theory, transport  # noqa: F401,E501

@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 __all__ = ["CCPConfig", "CCPState", "init_state", "on_computed", "on_timeout",
@@ -97,6 +98,12 @@ def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(v, dtype=like.dtype)
 
 
+def _alpha_scale(cfg: CCPConfig) -> float:
+    """``alpha * data_scale`` as the reference's compiler folds it: the
+    product of the two float32 constants, rounded to float32."""
+    return float(np.float32(np.float32(cfg.data_scale) * np.float32(cfg.alpha)))
+
+
 def on_computed(
     state: CCPState,
     cfg: CCPConfig,
@@ -114,21 +121,30 @@ def on_computed(
     """
     first = state.m == 0
     rtt_sample = cfg.data_scale * rtt_ack
-    rtt_new = torch.where(
-        first, rtt_sample, cfg.alpha * rtt_sample + (1.0 - cfg.alpha) * state.rtt_data
-    )
+    # eq. (4), rounded as the reference's XLA CPU build computes it: the
+    # constant alpha * data_scale is folded in float32, and the sum of the
+    # two products is a fused multiply-add.  Which product it fuses differs
+    # between the kernel that updates the estimator state and the one that
+    # computes eq. (5)-(7): the state takes fma(rtt_ack, c, (1-alpha) ewma),
+    # the estimates below fma(ewma, 1-alpha, c rtt_ack).  (One ulp of the
+    # EWMA shows once the feedback delay makes it comparable to the TTI.)
+    c = _alpha_scale(cfg)
+    keep = torch.full_like(state.rtt_data, 1.0 - cfg.alpha)
+    rtt_new = torch.where(first, rtt_sample, torch.addcmul(c * rtt_ack, keep, state.rtt_data))
+    rtt_state = torch.where(first, rtt_sample, torch.addcmul(
+        (1.0 - cfg.alpha) * state.rtt_data, torch.full_like(rtt_ack, c), rtt_ack))
     # eq. (2)/(7): XTT_i = Tr_{i-1} - Tx_i ; Tu += max(0, RTT - XTT)
     xtt = tr_prev - tx_i
     tu_inc = torch.maximum(_scalar(0.0, xtt), rtt_new - xtt)
     tu_new = torch.where(first, cfg.fwd_frac * rtt_ack, state.Tu + tu_inc)
     m_new = state.m + 1
-    # eq. (6): helper-side finish-time estimate.
-    tc = tr_i - cfg.back_frac * rtt_new
+    # eq. (6): helper-side finish-time estimate, one fused multiply-add.
+    tc = torch.addcmul(tr_i, torch.full_like(rtt_new, -cfg.back_frac), rtt_new)
     # eq. (5).
     e_beta = torch.maximum((tc - tu_new) / m_new.to(tc.dtype), _scalar(1e-9, tc))
     # Successful receipt resets the timeout backoff (ACK arrived in time).
     new_state = CCPState(
-        rtt_data=torch.where(active, rtt_new, state.rtt_data),
+        rtt_data=torch.where(active, rtt_state, state.rtt_data),
         Tu=torch.where(active, tu_new, state.Tu),
         m=torch.where(active, m_new, state.m),
         e_beta=torch.where(active, e_beta, state.e_beta),

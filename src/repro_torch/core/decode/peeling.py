@@ -192,16 +192,25 @@ def _scatter_any(vals: torch.Tensor, index: torch.Tensor, size: int) -> torch.Te
     return out > 0
 
 
+def _neighbours(x: torch.Tensor, tables: DecoderTables) -> torch.Tensor:
+    """``x[:, tables["idx"]]``, (B, P, d_max), as one gather: on the CPU
+    advanced indexing runs a multithreaded kernel that is ~100x slower than
+    a gather when other processes load the cores."""
+    idx = tables["idx"]
+    flat = idx.reshape(1, -1).expand(x.shape[0], -1)
+    return torch.gather(x, 1, flat).view(x.shape[0], *idx.shape)
+
+
 def _deg_drop(tables: DecoderTables, new_src: torch.Tensor) -> torch.Tensor:
     """Per-pool-row count of neighbours newly recovered (``new_src`` (B, R))."""
-    return (tables["mask"] & new_src[:, tables["idx"]]).sum(dim=-1).to(torch.int32)
+    return (tables["mask"] & _neighbours(new_src, tables)).sum(dim=-1).to(torch.int32)
 
 
 def peel_round(recovered, res_deg, rx, tables):
     """One peel round: every received row of residual degree 1 releases its
     unique unrecovered neighbour.  Returns (recovered, res_deg, released)."""
     rel = rx & (res_deg == 1)
-    cand = tables["mask"] & ~recovered[:, tables["idx"]]  # (B, P, d_max)
+    cand = tables["mask"] & ~_neighbours(recovered, tables)  # (B, P, d_max)
     new_src = _scatter_any((cand & rel[..., None]).flatten(1),
                            tables["idx"].reshape(1, -1), recovered.shape[1])
     recovered = recovered | new_src

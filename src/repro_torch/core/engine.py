@@ -16,8 +16,12 @@ Port of the single-task path of ``repro.core.engine``.  The reference's
 ``lax.scan`` a Python loop over packet steps.  A rep is split into "draw
 tables" (:func:`draw_tables`, on a ``torch.Generator``) and "simulate from
 tables" (:func:`simulate`), so tests can feed the port tables (and churn
-dynamics) that the reference drew and compare the traces.  The transport
-line, fleets and ``shard=True`` are later slices (ROADMAP).
+dynamics) that the reference drew and compare the traces.  Under a
+``ChurnConfig`` with ``rtt_dist != 'off'`` the loop threads the transport
+feedback-delay line (:mod:`repro_torch.core.transport`): the policy hooks
+see observed instants, the trace stays physical.  ``Engine.run_fleet`` runs
+T tenants over one shared helper pool (:mod:`repro_torch.core.fleet`).
+``shard=True`` waits for a second card (ROADMAP).
 
 Typical usage::
 
@@ -42,9 +46,11 @@ from . import ccp as ccp_mod
 from . import decode as decode_mod
 from . import policies as policies_mod
 from . import simulator as sim
+from . import transport as transport_mod
 
-__all__ = ["Engine", "RunResult", "Tables", "policy_stream", "draw_tables",
-           "simulate"]
+__all__ = ["Engine", "FleetRunResult", "FleetTables", "RunResult", "Tables",
+           "draw_fleet_tables", "draw_tables", "policy_stream", "simulate",
+           "simulate_fleet"]
 
 
 def _as_policy(policy) -> policies_mod.Policy:
@@ -66,6 +72,11 @@ def _check_R(R) -> None:
         )
 
 
+def _check_reps(reps) -> None:
+    if isinstance(reps, bool) or not isinstance(reps, (int, np.integer)) or reps <= 0:
+        raise ValueError(f"reps must be a positive int, got {reps!r}")
+
+
 # ---------------------------------------------------------------------------
 # Step kernels (the reference's shared step kernels of the single-task loop)
 # ---------------------------------------------------------------------------
@@ -84,11 +95,7 @@ def _parse_churn_static(churn_static):
     else:
         (period, max_backoff, outage_dist, ge_on, cell_on,
          rtt_dist) = churn_static
-    if rtt_dist != "off":
-        raise NotImplementedError(
-            f"rtt_dist={rtt_dist!r}: the transport line is not ported yet "
-            "(ROADMAP queue 1, slice B3, transport)")
-    return period, max_backoff, outage_dist, ge_on, cell_on
+    return period, max_backoff, outage_dist, ge_on, cell_on, rtt_dist
 
 
 def _churn_step(dyn, a, beta_x, drop, t_arr, t_sta, sent, *, period, window,
@@ -132,11 +139,33 @@ def _ge_step(bad, ge_params, u_trans, u_loss, sent):
     """Gilbert–Elliott: loss by the current state, then the per-packet state
     transition (the chain advances even for packets already lost to an
     outage: the radio fades regardless).  ``ge_params`` from
-    :func:`_ge_params`."""
+    :func:`_ge_params`.  ``u_loss``/``sent`` may carry a tenant axis,
+    (B, T, N) in a fleet: one chain per helper, shared, and a loss draw per
+    tenant; ``bad``/``u_trans`` stay (B, N)."""
     p_bad, p_good, l_good, l_bad = ge_params
-    lost = (u_loss < torch.where(bad, l_bad, l_good)) & sent
+    threshold = torch.where(bad, l_bad, l_good)
+    if u_loss.dim() > threshold.dim():
+        threshold = threshold[:, None]
+    lost = (u_loss < threshold) & sent
     bad_next = torch.where(bad, u_trans >= p_good, u_trans < p_bad)
     return lost, bad_next
+
+
+def _transport_step(dyn, i: int, ge_bad=None, ge_par=None):
+    """Observation delay of step ``i``'s feedback (transport layer on): the
+    sampled feedback RTT ``rtt_base * rtt_jit``, doubled when the ACK is
+    lost, composed with the Gilbert–Elliott state that governs this step's
+    data loss (``ge_bad`` None when the chain is off).  In a fleet
+    ``rtt_jit``/``ack_u`` are (B, T, N, M) and meet the shared (B, N) base
+    RTT and chain state."""
+    jit, ack_u = dyn["rtt_jit"][..., i], dyn["ack_u"][..., i]
+    base, p_drop = dyn["rtt_base"], dyn["ack_p_drop"][:, None]
+    if jit.dim() == 3:
+        base, p_drop = base[:, None], p_drop[:, None]
+        if ge_bad is not None:
+            ge_bad, ge_par = ge_bad[:, None], tuple(g[:, None] for g in ge_par)
+    return transport_mod.observation_delay(base * jit, ack_u, p_drop,
+                                           ge_bad=ge_bad, ge_params=ge_par)
 
 
 def _hook_step(policy, pstate, ctx, churn: bool):
@@ -195,6 +224,13 @@ def policy_stream(beta, d_up, d_ack, d_down, policy, cfg_static,
     ``psummary`` is ``policy.summary(final_state)``, with the decoder's
     final ``dec_count`` and ``dec_done`` (B,) for a decoder policy.
 
+    A churn_static whose ``rtt_dist`` is not 'off' switches on the
+    transport feedback-delay line (``dyn`` then carries ``rtt_base``,
+    ``rtt_jit``, ``ack_u`` and ``ack_p_drop``): the hooks and the decoder
+    see *observed* instants (``ctx.tr_ok``, ``ctx.rtt_ack``, ``ctx.tr_prev``
+    and ``decode_t_done`` shifted by the sampled feedback delay) while the
+    returned trace stays physical.
+
     Timing model per packet (helper n, packet i):
       arrive_i = tx_i + d_up_i                      (uplink)
       start_i  = max(arrive_i, done_{i-1})          (FIFO helper queue)
@@ -212,12 +248,14 @@ def policy_stream(beta, d_up, d_ack, d_down, policy, cfg_static,
     dev = beta.device
     aux = {} if aux is None else aux
     churn = churn_static is not None
-    ge_on = False
+    ge_on = rtt_on = False
+    ge_bad = ge_par = None
     max_backoff = None
     if churn:
         (period, max_backoff, outage_dist, ge_on,
-         cell_on) = _parse_churn_static(churn_static)
+         cell_on, rtt_dist) = _parse_churn_static(churn_static)
         window = period * dyn["speed"].shape[-1]
+        rtt_on = rtt_dist != "off"
         if ge_on:
             ge_bad, ge_par = dyn["ge_bad0"], _ge_params(dyn["ge_params"])
     zero = torch.tensor(0.0)  # 0-d CPU scalar operand of torch.maximum
@@ -248,6 +286,7 @@ def policy_stream(beta, d_up, d_ack, d_down, policy, cfg_static,
         sent = torch.isfinite(tx)
         arrive = tx + up
         start = torch.maximum(arrive, done_prev)
+        ge_now = ge_bad  # the chain state that governs this step's losses
         if churn:
             # Churn lookups run on clamped times: no inf reaches an index.
             t_arr = torch.where(sent, arrive, 0.0)
@@ -269,20 +308,30 @@ def policy_stream(beta, d_up, d_ack, d_down, policy, cfg_static,
         tr = torch.where(received, tr_ok, torch.inf)
         idle = torch.where(received, torch.maximum(arrive - done_prev, zero), 0.0)
         rtt_ack = up + d_ack[..., i]
+        if rtt_on:
+            # The transport delay line: the physics above is final; what
+            # follows (decoder absorb, hooks) runs on the observed instants.
+            # At rtt_mean = 0 the delay is exactly 0.0: bitwise the idealized
+            # loop.
+            delay = _transport_step(dyn, i, ge_now, ge_par)
+            tr_obs, rtt_obs = tr_ok + delay, rtt_ack + delay
+        else:
+            tr_obs, rtt_obs = tr_ok, rtt_ack
         dec_kw = {}
         if use_dec:
             # Absorb this step's arrivals before the hooks run: the feedback
             # a policy sees at step i is everything an eagerly decoding
-            # collector has recovered from packets 0..i.
+            # collector has recovered from packets 0..i.  decode_t_done is
+            # the collector-observed bound (tr_obs).
             ids, sym_next = _send_time_ids(sym_next, tx, sent)
             dec, t_hi, t_done = _decode_step(dec, t_hi, t_done, tables, ids,
-                                             received, tr_ok)
+                                             received, tr_obs)
             dec_kw = dict(decoded_count=dec["count"], ripple=dec["ripple"],
                           decode_done=dec["done"], decode_t_done=t_done)
             outs["sym_id"].append(ids)
         ctx = policies_mod.StepCtx(
             i=i, n=N, tx=tx, arrive=arrive, start=start, beta=beta_i,
-            tr_ok=tr_ok, lost=lost, received=received, rtt_ack=rtt_ack,
+            tr_ok=tr_obs, lost=lost, received=received, rtt_ack=rtt_obs,
             d_up=up, d_down=d_down[..., i], d_ack=d_ack[..., i],
             tr_prev=tr_prev, cfg=cfg, aux=aux, max_backoff=max_backoff, **dec_kw,
         )
@@ -293,7 +342,7 @@ def policy_stream(beta, d_up, d_ack, d_down, policy, cfg_static,
             outs[k].append(v)
         if churn:
             outs["lost"].append(lost)
-        tr_prev = torch.where(received, tr_ok, tr_prev)
+        tr_prev = torch.where(received, tr_obs, tr_prev)
         tx, done_prev = tx_next, done
 
     res = {k: torch.stack(v, dim=-1) for k, v in outs.items()}
@@ -345,25 +394,12 @@ def draw_tables(gen: torch.Generator, cfg, reps: int, R: int, M: int) -> Tables:
     return Tables(mu, a, rate, beta, d_up, d_ack, d_down, dyn)
 
 
-def simulate(tables: Tables, cfg, R: int, policy) -> Dict[str, torch.Tensor]:
-    """Run ``policy`` over drawn tables and extract every rep's completion
-    time, certification and per-helper statistics.  The policy's summary
-    values come back under ``x_<name>`` keys (``RunResult.extras``)."""
-    policy = _as_policy(policy)
-    c = cfg.ccp_cfg(R)
-    aux = policy.prepare(cfg, R, c, tables.mu, tables.a, tables.rate)
-    churn = cfg.churn is not None
-    if churn and tables.dyn is None:
-        raise ValueError("cfg has churn but the tables carry no dynamics")
-    outs, psum = policy_stream(
-        tables.beta, tables.d_up, tables.d_ack, tables.d_down, policy=policy,
-        cfg_static=(c.Bx, c.Br, c.Back, c.alpha),
-        churn_static=cfg.churn.static_key() if churn else None,
-        dyn=tables.dyn if churn else None, a=tables.a, aux=aux)
+def _task_stats(outs, aux, cfg, R: int, policy, tx_end) -> Dict[str, torch.Tensor]:
+    """Every row's completion time, certification and per-helper statistics
+    from the loop's (rows, N, M) traces: the extraction of the reference's
+    ``_sim_one`` (and, per task, of its ``_fleet_one``)."""
     kk = R + cfg.K(R)
-    # Under churn the last simulated Tr can be inf while the next send is
-    # finite: certify on the first unsimulated send (tx_end) instead.
-    t, valid = policy.finalize(outs, aux, cfg, R, kk, outs["tx_end"] if churn else None)
+    t, valid = policy.finalize(outs, aux, cfg, R, kk, tx_end)
     tr, idle, beta = outs["tr"], outs["idle"], outs["beta"]
     mask = policy.packet_mask(aux, cfg.N, beta.shape[-1])
     if mask is not None:
@@ -384,9 +420,130 @@ def simulate(tables: Tables, cfg, R: int, policy) -> Dict[str, torch.Tensor]:
     inv_m = float(np.float32(1.0) / np.float32(m_steps))
     lost_frac = (outs["lost"].float().sum(dim=-1) * inv_m) * sim._rdiv(
         float(m_steps), torch.clamp_min(n_sent, 1).float())
-    res = dict(T=t, valid=valid, efficiency=eff, r_n=r_n, mu=tables.mu,
-               a=tables.a, rate=tables.rate,
-               max_backoff=outs["backoff"].amax(dim=-1), lost_frac=lost_frac)
+    return dict(T=t, valid=valid, efficiency=eff, r_n=r_n,
+                max_backoff=outs["backoff"].amax(dim=-1), lost_frac=lost_frac)
+
+
+def simulate(tables: Tables, cfg, R: int, policy) -> Dict[str, torch.Tensor]:
+    """Run ``policy`` over drawn tables and extract every rep's completion
+    time, certification and per-helper statistics.  The policy's summary
+    values come back under ``x_<name>`` keys (``RunResult.extras``)."""
+    policy = _as_policy(policy)
+    c = cfg.ccp_cfg(R)
+    aux = policy.prepare(cfg, R, c, tables.mu, tables.a, tables.rate)
+    churn = cfg.churn is not None
+    if churn and tables.dyn is None:
+        raise ValueError("cfg has churn but the tables carry no dynamics")
+    outs, psum = policy_stream(
+        tables.beta, tables.d_up, tables.d_ack, tables.d_down, policy=policy,
+        cfg_static=(c.Bx, c.Br, c.Back, c.alpha),
+        churn_static=cfg.churn.static_key() if churn else None,
+        dyn=tables.dyn if churn else None, a=tables.a, aux=aux)
+    # Under churn the last simulated Tr can be inf while the next send is
+    # finite: certify on the first unsimulated send (tx_end) instead.
+    res = _task_stats(outs, aux, cfg, R, policy, outs["tx_end"] if churn else None)
+    res.update(mu=tables.mu, a=tables.a, rate=tables.rate)
+    res.update({f"x_{k}": aux[k] for k in policy.report_aux})
+    res.update({f"x_{k}": v for k, v in psum.items()})
+    return res
+
+
+# ---------------------------------------------------------------------------
+# One fleet batch: T tenants contending for cfg.N shared helpers
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FleetTables:
+    """A fleet batch's random draws: the shared helper draws (B, N), each
+    tenant's packet tables (B, T, N, M), releases (B, T), the recruit mask
+    (B, T, N) and priority keys (B, T), and under churn the fleet dynamics
+    of :func:`repro_torch.core.simulator.stack_fleet_dynamics` (None when
+    static)."""
+
+    mu: torch.Tensor
+    a: torch.Tensor
+    rate: torch.Tensor
+    beta: torch.Tensor
+    d_up: torch.Tensor
+    d_ack: torch.Tensor
+    d_down: torch.Tensor
+    release: torch.Tensor
+    recruit: torch.Tensor
+    prio: torch.Tensor
+    dyn: Optional[dict] = None
+
+    def to(self, device) -> "FleetTables":
+        """The same tables (and dynamics) on ``device``."""
+        moved = {f.name: getattr(self, f.name).to(device)
+                 for f in dataclasses.fields(self) if f.name != "dyn"}
+        dyn = None if self.dyn is None else {k: v.to(device) for k, v in self.dyn.items()}
+        return FleetTables(**moved, dyn=dyn)
+
+
+def draw_fleet_tables(gen: torch.Generator, cfg, fleet, reps: int, R: int,
+                      M: int) -> FleetTables:
+    """Draw a fleet batch from ``gen``: the helpers, then each tenant's
+    packet tables and dynamics in turn (task 0's are exactly
+    :func:`draw_tables`' from the same generator state: the equivalence
+    spine), then the releases and the placement.  Tenants share the helper
+    draw and its helper-state processes; per-packet draws are per tenant."""
+    from . import fleet as fleet_mod
+
+    mu, a, rate = sim.draw_helpers(gen, cfg, reps)
+    tasks = [sim.draw_task_tables(gen, cfg, mu, a, rate, M, R) for _ in range(fleet.n_tasks)]
+    stack = lambda j: torch.stack([t[j] for t in tasks], dim=1)  # noqa: E731
+    dyn = None if cfg.churn is None else sim.stack_fleet_dynamics([t[4] for t in tasks])
+    release = fleet_mod.draw_releases(gen, fleet, reps)
+    recruit, prio = fleet_mod.place(gen, fleet, cfg, mu, a, rate)
+    return FleetTables(mu, a, rate, stack(0), stack(1), stack(2), stack(3),
+                       release, recruit, prio, dyn)
+
+
+def simulate_fleet(tables: FleetTables, cfg, R: int, policy, fleet) -> Dict[str, torch.Tensor]:
+    """Run ``policy`` for every tenant of a drawn fleet batch and extract,
+    per (rep, task), completion, certification and per-helper statistics
+    ((B, T[, N])), the sojourn (completion minus release), and per rep the
+    makespan, helper utilization (B, N) and Jain fairness (B,): the
+    counterpart of the reference's ``_fleet_one``."""
+    from . import fleet as fleet_mod
+
+    policy = _as_policy(policy)
+    c = cfg.ccp_cfg(R)
+    B, T = tables.release.shape
+    churn = cfg.churn is not None
+    if churn and tables.dyn is None:
+        raise ValueError("cfg has churn but the tables carry no dynamics")
+    per_task = policy.fleet_aux == "per_task"
+    if per_task:
+        # Block policies: one aux per tenant, so the fixed allocation lands
+        # on the tenant's recruited helpers.
+        aux = policy.prepare_fleet(cfg, R, c, tables.mu, tables.a, tables.rate, tables.recruit)
+        rows = {k: v.reshape((B * T,) + v.shape[2:]) for k, v in aux.items()}
+    else:
+        aux = policy.prepare(cfg, R, c, tables.mu, tables.a, tables.rate)
+        rows = fleet_mod.stream.task_rows(aux, T)
+    outs, psum = fleet_mod.fleet_stream(
+        tables.beta, tables.d_up, tables.d_ack, tables.d_down, tables.release,
+        tables.recruit, tables.prio, policy=policy,
+        cfg_static=(c.Bx, c.Br, c.Back, c.alpha), fleet_static=fleet.static_key(),
+        churn_static=cfg.churn.static_key() if churn else None,
+        dyn=tables.dyn if churn else None, a=tables.a, aux=aux, aux_task_axis=per_task)
+    flat = lambda v: v.reshape((B * T,) + v.shape[2:])  # noqa: E731
+    keys = ("tr", "idle", "tx", "arrive", "beta", "lost", "backoff")
+    keys += ("sym_id",) if policy.uses_decoder else ()
+    stats = _task_stats({k: flat(outs[k]) for k in keys}, rows, cfg, R, policy,
+                        flat(outs["tx_end"]) if churn else None)
+    res = {k: v.reshape((B, T) + v.shape[1:]) for k, v in stats.items()}
+    res["release"] = tables.release
+    res["sojourn"] = res["T"] - tables.release
+    # Fleet metrics: helper utilization over the rep's makespan and Jain
+    # fairness over the certified tenants' sojourns.
+    vmask = res["valid"] & torch.isfinite(res["T"])
+    res["makespan"] = torch.where(vmask, res["T"], -torch.inf).amax(dim=-1)
+    res["util"] = fleet_mod.helper_utilization(outs["beta"], outs["tr"], tables.d_down,
+                                               res["makespan"])
+    res["fairness"] = fleet_mod.jain_fairness(res["sojourn"], vmask)
+    res.update(mu=tables.mu, a=tables.a, rate=tables.rate)
     res.update({f"x_{k}": aux[k] for k in policy.report_aux})
     res.update({f"x_{k}": v for k, v in psum.items()})
     return res
@@ -464,6 +621,75 @@ class RunResult:
         return d
 
 
+_FLEET_FIELDS = ("T", "sojourn", "release", "valid", "efficiency", "r_n", "mu", "a",
+                 "rate", "max_backoff", "lost_frac", "util", "fairness", "makespan")
+
+
+@dataclasses.dataclass
+class FleetRunResult:
+    """Structured result of ``Engine.run_fleet`` over B reps of an
+    ``n_tasks``-tenant fleet sharing ``cfg.N`` helpers, as tensors on the
+    run's device.
+
+    T / sojourn / release / valid: (B, n_tasks) per-task completion time
+    (absolute), completion minus release, release time, and certification
+    mask (an uncertified task MUST be dropped and counted, never averaged);
+    efficiency / r_n / max_backoff / lost_frac: (B, n_tasks, N) per task
+    and helper; mu / a / rate: (B, N) shared helper draws; util: (B, N)
+    per-helper busy fraction inside the rep's makespan; fairness: (B,)
+    Jain index over the certified tasks' sojourns; makespan: (B,) the last
+    certified completion.  ``summary()`` reduces the batch to the values
+    the ``fig_fleet`` sweep plots.
+    """
+
+    T: torch.Tensor
+    sojourn: torch.Tensor
+    release: torch.Tensor
+    valid: torch.Tensor
+    efficiency: torch.Tensor
+    r_n: torch.Tensor
+    mu: torch.Tensor
+    a: torch.Tensor
+    rate: torch.Tensor
+    max_backoff: torch.Tensor
+    lost_frac: torch.Tensor
+    util: torch.Tensor
+    fairness: torch.Tensor
+    makespan: torch.Tensor
+    extras: Dict[str, torch.Tensor]
+    M: int
+    policy: str
+    n_tasks: int
+    discipline: str
+
+    def __getitem__(self, key):
+        return self.as_dict()[key]
+
+    def keys(self):
+        return self.as_dict().keys()
+
+    def as_dict(self) -> Dict[str, object]:
+        d = {f: getattr(self, f) for f in _FLEET_FIELDS}
+        d.update(self.extras)
+        d["M"] = self.M
+        return d
+
+    def summary(self) -> Dict[str, float]:
+        """Batch values of the saturation sweep: p50/p99 sojourn over the
+        certified tasks, mean helper utilization and fairness, and the
+        uncertified-task count (on the host, as the reference's)."""
+        valid = self.valid.cpu().numpy()
+        sojourn = self.sojourn.cpu().numpy()
+        soj = sojourn[valid & np.isfinite(sojourn)]
+        return dict(
+            p50=float(np.percentile(soj, 50)) if soj.size else float("nan"),
+            p99=float(np.percentile(soj, 99)) if soj.size else float("nan"),
+            util_mean=float(np.nanmean(self.util.cpu().numpy())),
+            fairness_mean=float(np.nanmean(self.fairness.cpu().numpy())),
+            invalid=int((~valid).sum()),
+        )
+
+
 def _generator(seed: Union[int, torch.Generator], device) -> torch.Generator:
     if isinstance(seed, torch.Generator):
         if seed.device.type != device.type:
@@ -481,7 +707,8 @@ class Engine:
     power-of-two-bucketed horizon M.  If any rep is uncertified the horizon
     doubles and the batch is drawn again from the same generator state — the
     helper draw comes first, so it is unchanged — until every rep is
-    certified or the cap is hit.
+    certified or the cap is hit.  ``run_fleet`` does the same for T tenants
+    sharing one pool.
     """
 
     def __init__(self, device=None, shard: bool = False):
@@ -499,8 +726,7 @@ class Engine:
         engine's device); returns a :class:`RunResult`."""
         policy = _as_policy(policy)
         _check_R(R)
-        if isinstance(reps, bool) or not isinstance(reps, (int, np.integer)) or reps <= 0:
-            raise ValueError(f"reps must be a positive int, got {reps!r}")
+        _check_reps(reps)
         gen = _generator(seed, self.device)
         state = gen.get_state()
         kk = R + cfg.K(R)
@@ -516,6 +742,54 @@ class Engine:
         extras = {k[2:]: v for k, v in out.items() if k.startswith("x_")}
         core = {k: v for k, v in out.items() if not k.startswith("x_")}
         return RunResult(M=M, policy=policy.name, extras=extras, **core)
+
+    def run_fleet(self, cfg, policy, reps: int, R: int, *, fleet=None,
+                  seed: Union[int, torch.Generator] = 0,
+                  M_override: Optional[int] = None) -> FleetRunResult:
+        """Multi-tenant event-clock run: ``fleet.n_tasks`` concurrent tasks
+        contend for the ``cfg.N`` shared helpers under the fleet's service
+        discipline and admission rule.
+
+        ``fleet`` is a :class:`repro_torch.core.fleet.FleetConfig` (default:
+        one task, all helpers, FIFO); at one task with all helpers the run
+        is ``Engine.run`` bit for bit, for every registered policy.  The
+        shared horizon doubles as in :meth:`run` until every (rep, task)
+        completion is certified or the cap is hit."""
+        from . import fleet as fleet_mod
+
+        policy = _as_policy(policy)
+        fleet = fleet_mod.FleetConfig() if fleet is None else fleet
+        if not isinstance(fleet, fleet_mod.FleetConfig):
+            raise TypeError(
+                "fleet must be a repro_torch.core.fleet.FleetConfig (or None for "
+                f"the 1-task default), got {type(fleet).__name__}: {fleet!r}")
+        if fleet.placement not in fleet_mod.PLACEMENTS:
+            raise ValueError(
+                f"unknown placement {fleet.placement!r}; known: "
+                f"{sorted(fleet_mod.PLACEMENTS)} (register_placement adds custom rules)")
+        if fleet.helpers_per_task is not None and fleet.helpers_per_task > cfg.N:
+            raise ValueError(
+                f"helpers_per_task={fleet.helpers_per_task} exceeds the "
+                f"cfg.N={cfg.N} helpers in the pool")
+        _check_R(R)
+        _check_reps(reps)
+        gen = _generator(seed, self.device)
+        state = gen.get_state()
+        kk = R + cfg.K(R)
+        cap = _m_cap(cfg, kk, policy)
+        M = _initial_m(sim._horizon_shared(cfg, R), cfg, R, kk, cap, policy,
+                       M_override)
+        for _ in range(8):
+            gen.set_state(state)
+            out = simulate_fleet(draw_fleet_tables(gen, cfg, fleet, reps, R, M), cfg, R,
+                                 policy, fleet)
+            if bool(out["valid"].all()) or M >= cap or M_override is not None:
+                break
+            M = min(M * 2, cap)
+        extras = {k[2:]: v for k, v in out.items() if k.startswith("x_")}
+        core = {k: v for k, v in out.items() if not k.startswith("x_")}
+        return FleetRunResult(M=M, policy=policy.name, n_tasks=fleet.n_tasks,
+                              discipline=fleet.discipline, extras=extras, **core)
 
     def run_one(self, cfg, policy, R: int, *,
                 seed: Union[int, torch.Generator] = 0,

@@ -45,6 +45,13 @@ Protocol (port of ``repro.core.policies.base``):
 ``horizon_hint(cfg, R, kk) -> int | None``
     Optional scan-horizon hint (see ``engine._initial_m``).
 
+Fleet runs (``Engine.run_fleet``) drive the same hooks once per tenant per
+round, on ``(B*T, N)`` rows (rep-major: row ``b*T + t`` is rep b's tenant
+t), with ``StepCtx.queue_delay`` and ``StepCtx.contention`` filled (None on
+the single-task path).  Fixed-allocation block policies declare
+``fleet_aux = "per_task"`` so :meth:`Policy.prepare_fleet` allocates their
+loads over each tenant's recruited helpers.
+
 Decoder feedback (``uses_decoder = True``): the engine additionally runs the
 incremental peeling decoder of :mod:`repro_torch.core.decode` inside the
 loop and fills ``StepCtx.decoded_count`` / ``ripple`` / ``decode_done`` /
@@ -56,9 +63,7 @@ count with :func:`repro_torch.core.decode.decode_completion`.
 Policies are frozen dataclasses; per-rep data flows through ``aux`` and
 ``state``, never through instance attributes.  ``register(cls)`` adds a
 policy class under its ``name``; ``get(name)`` instantiates; ``names()``
-lists.  Unknown names raise with the known list; names the reference
-registers but the port has not ported yet raise ``NotImplementedError``
-naming their ROADMAP item.
+lists.  Unknown names raise with the known list.
 """
 
 from __future__ import annotations
@@ -73,17 +78,19 @@ __all__ = ["RING", "StepCtx", "Policy", "register", "get", "names"]
 RING = 16  # ring-buffer slots for in-flight (Tr, TTI) pairs
 
 # Reference policies still to be ported, with the ROADMAP item that brings
-# each (queue 1 of ROADMAP.md).
-NOT_PORTED = {
-    "tfrc_ccp": "B3, transport slice (core/transport/)",
-}
+# each (queue 1 of ROADMAP.md): none since the transport slice.
+NOT_PORTED: Dict[str, str] = {}
 
 
 @dataclasses.dataclass
 class StepCtx:
     """Per-packet step context handed to the policy hooks.
 
-    Tensor fields are (B, N) slices for packet ``i``.
+    Tensor fields are (B, N) slices for packet ``i`` ((B*T, N) in a fleet).
+    With the transport layer on (``ChurnConfig.rtt_dist != 'off'``),
+    ``tr_ok``, ``rtt_ack``, ``tr_prev`` and ``decode_t_done`` are *observed*
+    instants: the physical event shifted by the sampled feedback delay (one
+    RTT, two when the ACK was lost).  The engine's trace stays physical.
     """
 
     i: int                  # packet index
@@ -92,10 +99,10 @@ class StepCtx:
     arrive: torch.Tensor    # uplink arrival time
     start: torch.Tensor     # compute start (FIFO queue)
     beta: torch.Tensor      # effective runtime (churn-scaled)
-    tr_ok: torch.Tensor     # result-arrival time if not lost
+    tr_ok: torch.Tensor     # (observed) result-arrival time if not lost
     lost: torch.Tensor      # bool: packet lost (churn; always False when static)
     received: torch.Tensor  # bool: sent and not lost
-    rtt_ack: torch.Tensor   # receipt-ACK RTT sample
+    rtt_ack: torch.Tensor   # (observed) receipt-ACK RTT sample
     d_up: torch.Tensor      # uplink delay of packet i
     d_down: torch.Tensor    # result downlink delay
     d_ack: torch.Tensor     # ACK downlink delay
@@ -114,6 +121,12 @@ class StepCtx:
     # sends at tx >= decode_t_done are provably useless; stop rules gate on
     # this, not on decode_done alone.
     decode_t_done: Optional[torch.Tensor] = None  # f32
+    # Fleet contention (filled only by the fleet loop, None on the single-task
+    # path): how long this packet waited behind other tenants at its helper
+    # (compute start minus the start a dedicated helper would have given),
+    # and how many tenants each helper served this round.
+    queue_delay: Optional[torch.Tensor] = None  # f32
+    contention: Optional[torch.Tensor] = None   # i32
 
 
 class Policy:
@@ -128,9 +141,26 @@ class Policy:
     uses_decoder: bool = False
     #: aux keys copied into the results as ``x_<key>`` (see module doc)
     report_aux: tuple = ()
+    #: fleet aux layout: "shared" (one ``prepare`` aux for every tenant) or
+    #: "per_task" (``prepare_fleet``: one aux per tenant over its recruit
+    #: set).  "per_task" is incompatible with ``uses_decoder``.
+    fleet_aux: str = "shared"
 
     def prepare(self, cfg, R: int, ccp_cfg, mu, a, rate) -> dict:
         return {}
+
+    def prepare_fleet(self, cfg, R: int, ccp_cfg, mu, a, rate, recruit) -> dict:
+        """Per-tenant aux for ``Engine.run_fleet`` (called only when
+        ``fleet_aux == "per_task"``): one :meth:`prepare` aux per tenant,
+        with the helpers it did not recruit given mu = 0, so every
+        weight-proportional block allocation lands on its recruit set.
+        mu/a/rate (B, N), recruit (B, T, N); every aux tensor comes back
+        (B, T, ...)."""
+        B, T, N = recruit.shape
+        rows = lambda v: v.repeat_interleave(T, dim=0)  # noqa: E731
+        mu_t = torch.where(recruit.reshape(B * T, N), rows(mu), 0.0)
+        aux = self.prepare(cfg, R, ccp_cfg, mu_t, rows(a), rows(rate))
+        return {k: v.reshape(B, T, *v.shape[1:]) for k, v in aux.items()}
 
     def init(self, shape, device):
         return {}

@@ -74,6 +74,10 @@ class UncodedPolicy(Policy):
     version = 1
     m_cap_factor = 4
     report_aux = ("loads",)
+    # Fixed pre-assigned blocks go over each tenant's recruited helpers, not
+    # the whole pool: a block stranded on a stream that never sends would
+    # make the task unfinishable.
+    fleet_aux = "per_task"
 
     @property
     def name(self) -> str:

@@ -17,10 +17,16 @@ phases lose or stretch packets; the collector reacts with Algorithm 1
 lines 13-14 (``Policy.on_timeout``).  A ``ChurnConfig`` with every loss
 knob at zero is bit for bit the static model.
 
-Port of ``repro.core.simulator`` without its transport tables
-(``rtt_dist != 'off'``) and fleet draws.  Every table carries a leading rep
-dimension ``(B, N[, M])`` in place of the reference's ``vmap``, and is
-float32 as the reference's are (JAX runs with x64 off).  Draws use an
+Transport (``rtt_dist != 'off'``): :func:`draw_dynamics` adds the
+feedback-RTT tables of :mod:`repro_torch.core.transport`, drawn after every
+churn table.  Fleets (:meth:`repro_torch.core.engine.Engine.run_fleet`)
+draw each tenant's packet tables with :func:`draw_task_tables` and share
+the helper-state processes (:func:`stack_fleet_dynamics`).
+
+Port of ``repro.core.simulator``.  Every table carries a leading rep
+dimension ``(B, N[, M])`` in place of the reference's ``vmap`` (a fleet's
+per-tenant tables ``(B, T, N, M)``), and is float32 as the reference's are
+(JAX runs with x64 off).  Draws use an
 explicit ``torch.Generator``: they follow the reference's distributions but
 not its bits (tests compare moments, and inject JAX-drawn tables through
 :mod:`repro_torch.interop` where bits matter).
@@ -36,23 +42,22 @@ import torch
 
 from . import ccp as ccp_mod
 from . import theory
+from .transport import RTT_DISTS, draw_rtt_tables
 
 __all__ = [
     "ChurnConfig",
     "RTT_DISTS",
     "ScenarioConfig",
+    "FLEET_PER_TASK",
     "draw_dynamics",
     "draw_helpers",
     "draw_packet_tables",
+    "draw_task_tables",
+    "stack_fleet_dynamics",
     "class_weights",
     "completion_time",
     "efficiency_measured",
 ]
-
-
-#: Feedback-RTT regimes of the reference's transport layer
-#: (``repro.core.transport.rtt.RTT_DISTS``); only "off" runs in the port.
-RTT_DISTS = ("off", "fixed", "lognormal", "cell")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,9 +88,20 @@ class ChurnConfig:
     ge_loss_good / ge_loss_bad: per-packet loss prob in each GE state.
     p_cell:     per-phase prob a correlated whole-cell outage event starts.
     cell_frac:  prob each helper belongs to a given cell event.
-    rtt_dist / rtt_mean / rtt_sigma / rtt_spike_prob / rtt_spike_scale /
-    rtt_het:    the reference's transport feedback-delay knobs, validated
-                as there; ``rtt_dist != 'off'`` is not ported and raises.
+    rtt_dist:   feedback-RTT regime of the transport layer
+                (:mod:`repro_torch.core.transport`): 'off' (the idealized
+                zero-latency control plane), 'fixed', 'lognormal'
+                (jittered) or 'cell' (latency spikes).  When on, every
+                StepCtx observation the policy sees is delayed by the
+                sampled feedback RTT (doubled when the ACK itself is lost)
+                while ground-truth completion stays time-exact;
+                ``rtt_mean = 0`` is bit for bit the idealized engine.
+    rtt_mean:   mean feedback RTT in seconds.
+    rtt_sigma:  log-std of the 'lognormal' per-packet jitter.
+    rtt_spike_prob / rtt_spike_scale: 'cell' regime: per-packet prob of a
+                latency spike and its multiplier on the base RTT.
+    rtt_het:    per-helper base-RTT heterogeneity: bases are uniform in
+                ``rtt_mean * [1 - rtt_het, 1 + rtt_het]``.
     """
 
     period: float = 5.0
@@ -128,11 +144,6 @@ class ChurnConfig:
         if not 0.0 <= self.rtt_het <= 1.0:
             raise ValueError(
                 f"rtt_het must be in [0, 1], got {self.rtt_het!r}")
-        if self.rtt_dist != "off":
-            raise NotImplementedError(
-                f"rtt_dist={self.rtt_dist!r}: the transport layer is not "
-                "ported yet (ROADMAP queue 1, slice B3, transport); use "
-                "rtt_dist='off'")
         # Normalize list-valued GE knobs to (hashable) tuples and check the
         # per-class lengths agree.
         lengths = set()
@@ -194,7 +205,8 @@ class ChurnConfig:
     @property
     def rtt_enabled(self) -> bool:
         """True when the transport feedback-delay line is structurally on
-        (never, in the port: ``rtt_dist != 'off'`` raises)."""
+        (``rtt_dist != 'off'``); with ``rtt_mean = 0`` the enabled path is
+        still numerically the idealized engine, bit for bit."""
         return self.rtt_dist != "off"
 
     @property
@@ -330,7 +342,11 @@ def draw_dynamics(gen: torch.Generator, cfg: ScenarioConfig, reps: int, M: int) 
     states, ``ge_u_trans``/``ge_u_loss`` (B, N, M) uniforms and
     ``ge_params`` for the Gilbert–Elliott chain: (B, 4) float32
     (p_bad, p_good, loss_good, loss_bad), or (B, 4, N) when any ``ge_*``
-    knob is a per-class tuple (each helper draws a class uniformly)."""
+    knob is a per-class tuple (each helper draws a class uniformly).
+    With the transport layer on (``rtt_dist != 'off'``): ``rtt_base``
+    (B, N), ``rtt_jit``/``ack_u`` (B, N, M) and ``ack_p_drop`` (B,) float32
+    (:func:`repro_torch.core.transport.draw_rtt_tables`), drawn after every
+    table above, so turning transport on never changes a churn draw."""
     ch = cfg.churn
     dev = gen.device
     B, N, P = reps, cfg.N, ch.n_phases
@@ -372,6 +388,40 @@ def draw_dynamics(gen: torch.Generator, cfg: ScenarioConfig, reps: int, M: int) 
             dyn["ge_params"] = per
         dyn["ge_u_trans"] = torch.rand((B, N, M), generator=gen, device=dev)
         dyn["ge_u_loss"] = torch.rand((B, N, M), generator=gen, device=dev)
+    if ch.rtt_enabled:
+        dyn.update(draw_rtt_tables(gen, ch, B, N, M))
+        dyn["ack_p_drop"] = torch.full((B,), float(np.float32(ch.drop_prob)), device=dev)
+    return dyn
+
+
+#: The per-packet dynamics a fleet draws per tenant (tenants send distinct
+#: packets); every other table is a helper-state process, shared.
+FLEET_PER_TASK = ("drop", "ge_u_loss", "rtt_jit", "ack_u")
+
+
+def draw_task_tables(gen: torch.Generator, cfg: ScenarioConfig, mu, a, rate,
+                     M: int, R: int):
+    """One tenant's packet tables and, under churn, its dynamics, drawn in
+    the order :func:`repro_torch.core.engine.draw_tables` draws them after
+    the helpers: so a fleet's task 0 draws exactly the single-task tables
+    (the equivalence spine of ``Engine.run_fleet``).  Returns
+    ``(beta, d_up, d_ack, d_down, dyn)``, ``dyn`` None when static."""
+    tabs = draw_packet_tables(gen, cfg, mu, a, rate, M, R)
+    dyn = None if cfg.churn is None else draw_dynamics(gen, cfg, mu.shape[0], M)
+    return (*tabs, dyn)
+
+
+def stack_fleet_dynamics(per_task) -> dict:
+    """Fleet churn tables from each tenant's :func:`draw_dynamics` output:
+    the helper-state processes (outage phases or intervals, slowdown
+    phases, cell events, the Gilbert–Elliott chain's start and transition
+    draws, ``rtt_base``, ``ack_p_drop``) are task 0's, shared by every
+    tenant (a helper that is down is down for everyone); the per-packet
+    draws :data:`FLEET_PER_TASK` gain a task axis, (B, T, N, M)."""
+    dyn = dict(per_task[0])
+    for k in FLEET_PER_TASK:
+        if k in dyn:
+            dyn[k] = torch.stack([d[k] for d in per_task], dim=1)
     return dyn
 
 

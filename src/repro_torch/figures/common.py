@@ -125,12 +125,14 @@ def device_meta(device: torch.device) -> Dict[str, object]:
 
 def emit(name: str, rows: List[dict], *, device: torch.device, seed: int,
          wall_s: float, policies: Optional[Dict[str, int]] = None,
-         derived: str = "", out_dir: Optional[Path] = None) -> Path:
+         derived: str = "", out_dir: Optional[Path] = None,
+         extra_meta: Optional[Dict[str, object]] = None) -> Path:
     """Write ``{"meta", "data"}`` JSON to ``out_dir/<name>.json`` and print
     the ``name,-,derived`` line.  ``meta`` holds the key schedule and seed,
     the policy versions and each policy's completion semantics
     (``"in_loop"`` decoding or ``"counter"``), the device and the wall
-    time (seconds on the host's clock)."""
+    time (seconds on the host's clock), and ``extra_meta``'s keys (e.g.
+    fig_transport's ``rtt``, fig_fleet's ``discipline``)."""
     out_dir = Path(out_dir) if out_dir is not None else OUT_DIR
     out_dir.mkdir(parents=True, exist_ok=True)
     meta = {"key_schedule": KEY_SCHEDULE, "seed": seed,
@@ -139,6 +141,8 @@ def emit(name: str, rows: List[dict], *, device: torch.device, seed: int,
         meta["policy"] = dict(policies)
         meta["decoder"] = {n: ("in_loop" if policy_registry.get(n).uses_decoder
                                else "counter") for n in policies}
+    if extra_meta:
+        meta.update(extra_meta)
     path = out_dir / f"{name}.json"
     path.write_text(json.dumps({"meta": meta, "data": rows}, indent=1))
     print(f"{name},-,{derived}", flush=True)

@@ -6,6 +6,8 @@
   efficiency  measured vs eq. (12) efficiency (paper §6 table)
   fig_churn   delay under churn: i.i.d., burst and cell-outage sweeps
   fig_decode  measured LT decode overhead vs i.i.d. loss
+  fig_transport  delay vs feedback RTT: iid, burst and cell regimes
+  fig_fleet   tenant sojourn vs offered load on a shared pool
 
 Everything, on the card:  PYTHONPATH=src python -m repro_torch.figures.run
 Subset:                   PYTHONPATH=src python -m repro_torch.figures.run --only fig3,fig5
@@ -21,7 +23,7 @@ from __future__ import annotations
 import argparse
 
 from ..core import policies as policy_registry
-from . import efficiency, fig3, fig4, fig5, fig_churn, fig_decode
+from . import efficiency, fig3, fig4, fig5, fig_churn, fig_decode, fig_fleet, fig_transport
 
 
 def main(argv=None) -> dict:
@@ -34,7 +36,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     ap.add_argument("--out", default=None, help="output directory of the JSON files")
     ap.add_argument("--policies", default=None,
-                    help="comma-separated registered policies for fig3/fig4/fig5/fig_churn")
+                    help="comma-separated registered policies for fig3/fig4/fig5/fig_churn/"
+                         "fig_transport/fig_fleet")
     args = ap.parse_args(argv)
 
     common = dict(device=args.device, out_dir=args.out)
@@ -59,6 +62,10 @@ def main(argv=None) -> dict:
                         for k, (ax, mk, name) in fig_churn.SWEEPS.items()}),
             "fig_decode": lambda: fig_decode.run(reps=reps, sweep=(0.0, 0.2), R=100,
                                                  n_helpers=10, offline_trials=2, **common),
+            "fig_transport": lambda: fig_transport.run(
+                reps=reps, R=100, n_helpers=10, rtt_sweep=(0.0, 4.0), **fig_kw),
+            "fig_fleet": lambda: fig_fleet.run(
+                reps=reps, task_sweep=(1, 4), R=100, n_helpers=10, **fig_kw),
         }
     else:
         reps = {} if args.reps is None else dict(reps=args.reps)
@@ -69,6 +76,8 @@ def main(argv=None) -> dict:
             "efficiency": lambda: efficiency.run(**reps, **common),
             "fig_churn": lambda: fig_churn.run(**reps, **fig_kw),
             "fig_decode": lambda: fig_decode.run(**reps, **common),
+            "fig_transport": lambda: fig_transport.run(**reps, **fig_kw),
+            "fig_fleet": lambda: fig_fleet.run(**reps, **fig_kw),
         }
     only = args.only.split(",") if args.only else list(jobs)
     unknown = set(only) - set(jobs)

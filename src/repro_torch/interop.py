@@ -3,8 +3,8 @@
 The port cannot reproduce ``jax.random`` draws, and its numpy code
 construction is a copy, so these constructors let a test hand the port the
 exact objects the reference built: an LT code or a coded-matmul plan from
-the reference's tables, helper/packet tables and churn dynamics the
-reference drew (in this system they play the part that model weights play
+the reference's tables, helper/packet tables, churn and transport dynamics
+and fleet tables the reference drew (in this system they play the part that model weights play
 elsewhere), and the reference's LM parameter tree.
 """
 
@@ -17,8 +17,8 @@ from . import _device
 from .core import engine, fountain
 from .core.coded_matmul import CodedMatmulPlan
 
-__all__ = ["dynamics_from_numpy", "lm_params_from_numpy", "lt_code_from_arrays",
-           "plan_from_arrays", "tables_from_numpy"]
+__all__ = ["dynamics_from_numpy", "fleet_tables_from_numpy", "lm_params_from_numpy",
+           "lt_code_from_arrays", "plan_from_arrays", "tables_from_numpy"]
 
 
 def lt_code_from_arrays(idx, mask, coef, R: int, K: int) -> fountain.LTCode:
@@ -64,11 +64,37 @@ def tables_from_numpy(mu, a, rate, beta, d_up, d_ack, d_down,
     return tables
 
 
+def fleet_tables_from_numpy(mu, a, rate, beta, d_up, d_ack, d_down, release, recruit,
+                            prio, device=None, dyn=None) -> engine.FleetTables:
+    """Fleet tables from reference draws: helper arrays (B, N), per-task
+    packet tables (B, T, N, M), release times (B, T), the recruit mask
+    (B, T, N) and priority keys (B, T), float32 (the mask bool) on
+    ``device`` (CUDA by default), and the fleet dynamics ``dyn`` (the
+    reference's ``draw_dynamics_fleet`` output per rep, whose per-packet
+    tables carry the task axis) through :func:`dynamics_from_numpy`."""
+    dev = _device.resolve(device)
+
+    def t(v):
+        return torch.as_tensor(np.asarray(v, dtype=np.float32), device=dev)
+
+    tables = engine.FleetTables(
+        t(mu), t(a), t(rate), t(beta), t(d_up), t(d_ack), t(d_down), t(release),
+        torch.as_tensor(np.asarray(recruit, dtype=bool), device=dev), t(prio),
+        None if dyn is None else dynamics_from_numpy(dyn, dev))
+    if tables.mu.dim() != 2 or tables.beta.dim() != 4 or tables.recruit.dim() != 3:
+        raise ValueError("need helper arrays (B, N), packet tables (B, T, N, M) and a "
+                         f"recruit mask (B, T, N); got {tuple(tables.mu.shape)}, "
+                         f"{tuple(tables.beta.shape)} and {tuple(tables.recruit.shape)}")
+    return tables
+
+
 def dynamics_from_numpy(dyn, device=None) -> dict:
-    """Churn dynamics from reference draws: a dict of arrays stacked over
-    reps (a leading B on every table, as :func:`repro_torch.core.simulator
-    .draw_dynamics` returns them), or a sequence of the reference's per-rep
-    ``draw_dynamics`` dicts, which are stacked here.  Booleans stay bool,
+    """Churn (and transport) dynamics from reference draws: a dict of
+    arrays stacked over reps (a leading B on every table, as
+    :func:`repro_torch.core.simulator.draw_dynamics` returns them), or a
+    sequence of the reference's per-rep ``draw_dynamics`` (or
+    ``draw_dynamics_fleet``) dicts, which are stacked here; the per-rep
+    scalar ``ack_p_drop`` becomes (B,).  Booleans stay bool,
     integers become int32 and floats float32, on ``device`` (CUDA by
     default): ``ge_params`` must be float32, or the loss comparisons would
     promote and move losses at the edges."""

@@ -1,8 +1,8 @@
 """Port parity for the churn scenario model: ``ChurnConfig`` (validation and
 properties), the phase and interval lookups bit for bit on the same times,
 the dynamics samplers against the reference's in distribution,
-``interop.dynamics_from_numpy``, the horizon cap under churn, and what the
-port still refuses (the transport knobs, ``tfrc_ccp``).
+``interop.dynamics_from_numpy``, the horizon cap under churn, and the
+transport knobs and ``tfrc_ccp``, taken since the transport slice.
 """
 
 import dataclasses
@@ -59,19 +59,28 @@ def test_churn_config_validation_matches_reference(kw, match):
 
 @pytest.mark.parametrize("rtt_dist", ["fixed", "lognormal", "cell"])
 def test_transport_knobs_are_refused_with_their_roadmap_slice(rtt_dist):
-    sim_jax.ChurnConfig(rtt_dist=rtt_dist)  # the reference takes them
-    with pytest.raises(NotImplementedError, match="ROADMAP.*B3"):
-        sim_pt.ChurnConfig(rtt_dist=rtt_dist)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*B3"):
-        eng_pt._parse_churn_static((5.0, 8.0, "phase", False, False, rtt_dist))
+    """Since the transport slice the knobs are no longer refused: the port
+    takes every regime and validates it as the reference does, and the
+    engine's static key carries it."""
+    kw = dict(rtt_dist=rtt_dist, rtt_mean=0.5, rtt_het=0.2)
+    ref, port = sim_jax.ChurnConfig(**kw), sim_pt.ChurnConfig(**kw)
+    assert dataclasses.asdict(ref) == dataclasses.asdict(port) and port.rtt_enabled
+    assert port.static_key() == ref.static_key()
+    assert eng_pt._parse_churn_static(port.static_key()) == eng_jax._parse_churn_static(
+        ref.static_key())
+    for bad, match in ((dict(kw, rtt_mean=-1.0), "rtt_mean"), (dict(kw, rtt_het=1.5), "rtt_het")):
+        for mod in (sim_jax, sim_pt):
+            with pytest.raises(ValueError, match=match):
+                mod.ChurnConfig(**bad)
 
 
 def test_registry_ports_the_churn_policies_and_still_refuses_tfrc():
-    assert {"adaptive_rate", "adaptive_rate_fb"} <= set(pol_pt.names())
-    assert set(pol_pt.base.NOT_PORTED) == {"tfrc_ccp"}
-    assert set(pol_jax.names()) == set(pol_pt.names()) | set(pol_pt.base.NOT_PORTED)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pol_pt.get("tfrc_ccp")
+    """Since the transport slice nothing is refused: the port registers
+    exactly the reference's policy names, tfrc_ccp included."""
+    assert {"adaptive_rate", "adaptive_rate_fb", "tfrc_ccp"} <= set(pol_pt.names())
+    assert pol_pt.base.NOT_PORTED == {}
+    assert set(pol_jax.names()) == set(pol_pt.names())
+    assert pol_pt.get("tfrc_ccp").name == "tfrc_ccp"
     fb = pol_pt.get("adaptive_rate_fb")
     ref = pol_jax.get("adaptive_rate_fb")
     assert fb.uses_decoder and fb.outage_run == ref.outage_run == 2

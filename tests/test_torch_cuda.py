@@ -861,3 +861,69 @@ def test_churn_figures_smoke_on_the_card(card, tmp_path):
         doc = json.loads((tmp_path / f"{name}.json").read_text())
         assert doc["meta"]["device"]["type"] == "cuda" and doc["meta"]["device"]["nvidia_smi"]
         assert doc["data"]
+
+
+# The transport line and the fleet loop: no kernel of their own; the card's
+# loops must observe, queue and complete exactly as the CPU's.
+from repro_torch.core import fleet as fleet_pt  # noqa: E402
+from repro_torch.core import policies as pol_pt  # noqa: E402
+
+
+def _transport_cfg(N, rtt_mean):
+    """tests/test_transport.py's churn mix under log-normal feedback RTT."""
+    return sim_pt.ScenarioConfig(N=N, scenario=1, churn=sim_pt.ChurnConfig(
+        period=5.0, p_down=0.1, p_slow=0.2, drop_prob=0.05, ge_p_bad=0.03, ge_p_good=0.25,
+        ge_loss_bad=0.5, p_cell=0.05, cell_frac=0.5, max_backoff=8.0,
+        rtt_dist="lognormal", rtt_mean=rtt_mean))
+
+
+def _card_equals_cpu(gpu: dict, cpu: dict, close=()):
+    for k, c in cpu.items():
+        g = gpu[k].cpu()
+        if k in close:
+            torch.testing.assert_close(g, c, rtol=1e-6, atol=1e-7, equal_nan=True)
+        else:
+            same = (g == c) | (g.isnan() & c.isnan()) if c.is_floating_point() else g == c
+            assert g.dtype == c.dtype and bool(same.all()), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", sorted(pol_pt.names()))
+def test_transport_engine_on_the_card_equals_the_cpu(card, policy):
+    """One set of transport tables through ``simulate`` on the card and on
+    the CPU: every output bit for bit but the efficiency (rtol 1e-6)."""
+    cfg, R = _transport_cfg(16, 2.0), 60
+    tables = eng_pt.draw_tables(torch.Generator().manual_seed(2), cfg, 4, R, 252)
+    cpu = eng_pt.simulate(tables, cfg, R, policy)
+    _card_equals_cpu(eng_pt.simulate(tables.to(card), cfg, R, policy), cpu, close=("efficiency",))
+    assert bool(cpu["lost_frac"].gt(0).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("discipline", fleet_pt.DISCIPLINES)
+@pytest.mark.parametrize("policy", ["ccp", "tfrc_ccp", "rateless_ccp", "hcmm"])
+def test_fleet_on_the_card_equals_the_cpu(card, policy, discipline):
+    """One set of fleet tables (3 tenants, striped over 12 helpers, 6 each)
+    under churn and transport through ``simulate_fleet`` on the card and on
+    the CPU: every output bit for bit but efficiency and utilization."""
+    cfg, R = _transport_cfg(12, 1.0), 60
+    fc = fleet_pt.FleetConfig(n_tasks=3, discipline=discipline, placement="striped",
+                              helpers_per_task=6)
+    tables = eng_pt.draw_fleet_tables(torch.Generator().manual_seed(4), cfg, fc, 4, R, 128)
+    cpu = eng_pt.simulate_fleet(tables, cfg, R, policy, fc)
+    gpu = eng_pt.simulate_fleet(tables.to(card), cfg, R, policy, fc)
+    _card_equals_cpu(gpu, cpu, close=("efficiency", "util"))
+
+
+@pytest.mark.gpu
+def test_transport_and_fleet_figures_smoke_on_the_card(card, tmp_path):
+    import json
+
+    from repro_torch.figures import run as figures_run
+
+    out = figures_run.main(["--smoke", "--only", "fig_transport,fig_fleet", "--out",
+                            str(tmp_path)])
+    assert set(out) == {"fig_transport", "fig_fleet"}
+    for name in out:
+        doc = json.loads((tmp_path / f"{name}.json").read_text())
+        assert doc["meta"]["device"]["type"] == "cuda" and doc["data"]

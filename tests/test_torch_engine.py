@@ -249,18 +249,18 @@ def test_engine_refusals():
     cfg = sim_pt.ScenarioConfig(N=4)
     with pytest.raises(ValueError, match="known policies"):
         eng.run(cfg, "nope", 2, 100)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.run(cfg, "tfrc_ccp", 2, 100)
     with pytest.raises(ValueError, match="R must be"):
         eng.run(cfg, "ccp", 2, 0)
-    # churn is ported; its transport knobs (rtt_dist != "off") are not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim_pt.ScenarioConfig(churn=sim_pt.ChurnConfig(rtt_dist="fixed", rtt_mean=0.1))
     with pytest.raises(NotImplementedError, match="second card"):
         eng_pt.Engine(device="cpu", shard=True)
-    # every reference policy is either ported or listed as still to port
+    # Since the transport slice tfrc_ccp and the transport knobs are taken,
+    # and every reference policy is ported.
+    transport = sim_pt.ScenarioConfig(N=4, churn=sim_pt.ChurnConfig(rtt_dist="fixed",
+                                                                    rtt_mean=0.1))
+    res = eng.run(transport, "tfrc_ccp", 2, 100)
+    assert res.policy == "tfrc_ccp" and res.extras["p_ev"].shape == (2, 4)
     from repro_torch.core import policies as pol_pt
-    assert set(pol_jax.names()) == set(pol_pt.names()) | set(pol_pt.base.NOT_PORTED)
+    assert set(pol_jax.names()) == set(pol_pt.names()) and not pol_pt.base.NOT_PORTED
 
 
 def test_horizon_heuristics_match_reference():

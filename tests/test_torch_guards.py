@@ -45,6 +45,14 @@ from repro_torch.core import engine, simulator
 churn = simulator.ScenarioConfig(N=8, churn=simulator.ChurnConfig(drop_prob=0.1, p_down=0.1))
 res = engine.Engine(device="cpu").run(churn, "adaptive_rate_fb", 2, 60)
 assert bool(res.valid.any()) and float(res.lost_frac.max()) > 0, res
+transport = simulator.ScenarioConfig(N=8, churn=simulator.ChurnConfig(
+    drop_prob=0.1, rtt_dist="lognormal", rtt_mean=1.0))
+res = engine.Engine(device="cpu").run(transport, "tfrc_ccp", 2, 60)
+assert bool(res.valid.all()) and float(res.extras["p_ev"].max()) > 0, res
+from repro_torch.core import fleet
+res = engine.Engine(device="cpu").run_fleet(simulator.ScenarioConfig(N=8), "ccp", 2, 60,
+                                             fleet=fleet.FleetConfig(n_tasks=2, discipline="ps"))
+assert res.T.shape == (2, 2) and bool(res.valid.all()), res
 from repro_torch.launch import serve
 out = serve.main(["--arch", "phi4-mini-3.8b", "--smoke", "--device", "cpu", "--requests", "3",
                   "--batch", "2", "--prompt-len", "6", "--new-tokens", "3", "--max-len", "16",
@@ -81,6 +89,7 @@ def test_default_device_is_cuda_and_entry_points_refuse_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the entry points would use it")
     cfg = simulator.ScenarioConfig(N=4)
+    z = np.zeros((1, 4), np.float32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _device.resolve()
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -100,6 +109,16 @@ def test_default_device_is_cuda_and_entry_points_refuse_without_a_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         figures_run.main(["--smoke", "--only", "fig_churn,fig_decode"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        figures_run.main(["--smoke", "--only", "fig_transport"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        figures_run.main(["--smoke", "--only", "fig_fleet"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.Engine().run_fleet(cfg, "ccp", 2, 20)
+    z4 = np.zeros((1, 1, 4, 2), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interop.fleet_tables_from_numpy(z, z, z, z4, z4, z4, z4, z[:, :1], z[:, None] > 0,
+                                        z[:, :1])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         interop.dynamics_from_numpy({"drop": np.zeros((1, 4, 2), bool)})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_launch.main(["--arch", "phi4-mini-3.8b", "--smoke"])
@@ -111,7 +130,6 @@ def test_default_device_is_cuda_and_entry_points_refuse_without_a_card():
         ServeEngine(model, params)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         interop.lm_params_from_numpy(model.cfg, {"blocks": {}})
-    z = np.zeros((1, 4), np.float32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         interop.tables_from_numpy(z, z, z, z[..., None], z[..., None],
                                   z[..., None], z[..., None])
