@@ -18,8 +18,11 @@ fleet: the feedback-delay loop and the multi-tenant fleet loop on the card
 against the CPU, and fig_transport and fig_fleet at their full sweeps;
 LM serving: phi4-mini-3.8b at its full published size through
 ``ServeEngine.generate``, attention on K4, then CCP dispatch over two
-replicas and the card against the CPU), checks the results, and prints one
-line per phase.  The line before
+replicas and the card against the CPU; LM training: phi4-mini at full width
+and 8 layers through ``launch/train``, every attention's forward on K4 and
+its backward on K4's backward kernel, then the card against the CPU and
+coded data parallelism), checks the results, and prints one line per
+phase.  The line before
 the last is a JSON object with every kernel's launches on the main path,
 error and times; the last line is ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; so does a machine without a CUDA card,
@@ -89,6 +92,15 @@ FA_CASES = [
     ("head256", 1, 4, 4, 70, 200, 256, True, 32, None, 5, 75),
 ]
 FA_TOL = {"float32": (2e-5, 1.6e-4), "bfloat16": (2e-2, 1.6e-1)}  # (rtol, atol), the reference's
+# K4's backward, |d - ref| <= atol max|ref| + rtol |ref| for each gradient:
+# float32 the forward's limit; bfloat16 a limit of its own, since dV = P^T dO
+# falls off with the key's position under a causal mask and 0.16 max|ref|
+# would pass late keys' gradients written as zeros. Both sides accumulate
+# in fp32 and round once to bfloat16 (one ulp is at most 2^-7 |ref|, so
+# rtol 2e-2 is 2.5 ulp); the fp32 sums in another order differ by ~1e-6
+# of max|ref|, and atol 1e-3 leaves room for the forward's own rounding of
+# O into D = sum dO O.
+FA_BWD_TOL = {"float32": FA_TOL["float32"], "bfloat16": (2e-2, 1e-3)}
 # The serving path: phi4-mini-3.8b at its published size (configs/phi4_mini_3p8b.py),
 # 4 request batches of 4 prompts of 1024 tokens, 32 new tokens each.
 SERVE = dict(arch="phi4-mini-3.8b", batches=4, batch=4, prompt=1024, new=32, max_len=2048)
@@ -310,7 +322,8 @@ def kernel_device_ms(call, reps: int, groups: dict) -> dict:
     millions of small launches; each record kept is whole), so a kernel's
     time a call is the mean of its records times its launches a call, the
     smallest whole number that covers the records seen; the dropped
-    records are printed."""
+    records are printed.  A window that kept no record of some group (late
+    in the script it can keep 1 of 20) is profiled again, up to 5 times."""
     import math
 
     import torch
@@ -319,10 +332,17 @@ def kernel_device_ms(call, reps: int, groups: dict) -> dict:
 
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
+    for attempt in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        seen_keys = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if all(any(sub in k for k in seen_keys for sub in subs.split("|"))
+               for subs in groups.values()):
+            break
+        phase("profiler", kernels=",".join(groups.values()), window=attempt + 1,
+              kept="none of a group: profiling again")
     out = dict.fromkeys([*groups, "other"], 0.0)
     seen = expected = 0
     for e in prof.key_averages():
@@ -1860,6 +1880,501 @@ def serve_card_vs_cpu(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# --- LM training (slice C2) ------------------------------------------------------
+
+# K4's backward against its plain version: (name, B, Hq, Hkv, Tq, Tk, D,
+# causal, window, softcap, q_offset, tk_valid).  GQA groups 1, 3 and 4,
+# ragged rows, windows, softcaps, a cache buffer read up to tk_valid (what
+# lies beyond is NaN and must get zero gradients), rows with no valid key
+# (a negative offset leaves the first rows without one; tk_valid 0 all),
+# head dims 24, 64, 128 and 256, and phi4-mini's heads at 256 tokens.
+FA_BWD_CASES = [
+    ("mha-d64", 1, 2, 2, 64, 64, 64, True, None, None, 0, None),
+    ("gqa3-ragged-d128", 2, 6, 2, 100, 100, 128, True, None, None, 0, None),
+    ("gqa4-noncausal-d128", 1, 8, 2, 37, 53, 128, False, None, None, 0, None),
+    ("window16", 1, 4, 2, 96, 96, 64, True, 16, None, 0, None),
+    ("softcap30-gqa4", 1, 4, 1, 80, 80, 64, True, None, 30.0, 0, None),
+    ("window8-softcap50-d24", 2, 4, 2, 45, 45, 24, True, 8, 50.0, 0, None),
+    ("offset-buffer", 2, 6, 2, 23, 64, 24, True, None, None, 10, 33),
+    ("first-rows-no-key", 1, 4, 2, 16, 32, 64, True, None, None, -3, None),
+    ("no-valid-key", 1, 4, 2, 5, 40, 8, True, None, None, 3, 0),
+    ("head256-window", 1, 4, 4, 70, 200, 256, True, 32, None, 5, 75),
+    ("phi4-heads", 1, 24, 8, 256, 256, 128, True, None, None, 0, None),
+]
+# K4's backward at the training shape (phi4-mini's heads, 1024 tokens, a
+# microbatch of 4 sequences, causal, f32).
+FA_BWD_SHAPE = dict(B=4, Hq=24, Hkv=8, T=1024, D=128)
+# The training path: phi4-mini-3.8b at full width, 8 of its 32 layers (the
+# full depth's 3.84 B parameters with their gradients and AdamW's m and v
+# need ~61 GB before any activation), batch 8 in 2 microbatches of 4 x 1024
+# tokens, 4 steps, remat on, through launch/train.
+TRAIN = dict(arch="phi4-mini-3.8b", n_layers=8, batch=8, n_micro=2, seq=1024, steps=4)
+# Card against CPU: full width, 2 layers, 1 x 64 tokens; the loss within
+# 1e-5 relative, each gradient leaf within 1e-4 of its max |.| (the port's
+# parity tolerance against the reference: fp32 sums over 3072-200064 terms in
+# another order, K4 and its backward against the plain versions), one AdamW
+# step on the same gradients within 1e-6 (elementwise fp32; CUDA divides by
+# a scalar as a product with its reciprocal).
+TRAIN_CARD_VS_CPU = dict(n_layers=2, B=1, T=64, loss_rtol=1e-5, grad_tol=1e-4, opt_tol=1e-6)
+# Coded DP: tests/test_coded_train_step.py's setup (mistral-nemo-12b smoke,
+# R=8 workers, 4 parities, microbatches of 2 x 16 tokens, the update within
+# 5e-5 of the uncoded one), then phi4-mini's full width at 2 layers, where
+# the coded gradient sum must be within 1e-5 of the uncoded sum, relative to
+# its max |.|.
+CODED = dict(R=8, n_parity=4, mb=2, T=16, tol=5e-5, full_layers=2, full_mb=1, full_T=64,
+             full_rtol=1e-5)
+
+
+def _fa_bwd_inputs(dev, gen, B, Hq, Hkv, Tq, Tk, D, dtype, tk_valid):
+    """q, k, v, dO; keys at or beyond tk_valid NaN."""
+    import torch
+    q, k, v = _qkv(dev, gen, B, Hq, Hkv, Tq, Tk, D, dtype)
+    do = torch.randn((B, Hq, Tq, D), generator=gen, device=dev).to(dtype)
+    if tk_valid is not None:
+        k[:, :, tk_valid:], v[:, :, tk_valid:] = torch.nan, torch.nan
+    return q, k, v, do
+
+
+def check_flash_attention_bwd(dev) -> None:
+    """K4's forward with its log-sum-exp, and its backward kernel, against
+    the plain versions (``ref.attention_lse_ref``, ``attention_fwd_ref``,
+    ``attention_bwd_ref`` over the valid prefix) on the card, f32 and bf16:
+    each gradient within FA_BWD_TOL for the type (|d - ref| <= atol
+    max|ref| + rtol |ref|; the share of that limit the worst element uses is
+    printed), the log-sum-exp within the forward's FA_TOL, zero gradients at
+    keys beyond tk_valid, and two runs of the backward bitwise equal."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.kernels.flash_attention.autograd import kernel_forward
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_fwd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).split(".")[-1]
+        rtol, atol = FA_TOL[tag]
+        g_rtol, g_atol = FA_BWD_TOL[tag]
+        for name, B, Hq, Hkv, Tq, Tk, D, causal, window, cap, off, tkv in FA_BWD_CASES:
+            q, k, v, do = _fa_bwd_inputs(dev, gen, B, Hq, Hkv, Tq, Tk, D, dt, tkv)
+            valid = Tk if tkv is None else tkv
+            kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+            out, lse = kernel_forward(q, k, v, kv_len=tkv, **kw)
+            before = k4.flash_attention_bwd_cuda.launches
+            grads = k4.flash_attention_bwd_cuda(q, k, v, out, do, lse, tk_valid=tkv, **kw)
+            again = k4.flash_attention_bwd_cuda(q, k, v, out, do, lse, tk_valid=tkv, **kw)
+            torch.cuda.synchronize()
+            if k4.flash_attention_bwd_cuda.launches != before + 2 * k4.BWD_LAUNCHES:
+                raise AssertionError("the backward's launch count is off")
+            ks, vs = k[:, :, :valid], v[:, :, :valid]
+            o_ref, lse_ref = attention_fwd_ref(q, ks, vs, kv_len=None, **kw)
+            ref = attention_bwd_ref(q, ks, vs, o_ref, do, lse_ref, kv_len=None, **kw)
+            pad = torch.zeros((B, Hkv, Tk - valid, D), dtype=dt, device=dev)
+            ref = (ref[0], torch.cat([ref[1], pad], 2), torch.cat([ref[2], pad], 2))
+            # -inf on the same rows (no valid key), the rest within tolerance
+            fin_lse, fin_ref = (torch.where(torch.isinf(x), 0, x) for x in (lse, lse_ref))
+            lse_err = float((fin_lse - fin_ref).abs().max())
+            lse_ok = torch.equal(torch.isinf(lse), torch.isinf(lse_ref)) and bool(
+                torch.allclose(fin_lse, fin_ref, rtol=rtol, atol=atol))
+            errs, share, ok = [], 0.0, lse_ok
+            for g, r in zip(grads, ref):
+                diff, r = (g.float() - r.float()).abs(), r.float()
+                limit = g_atol * float(r.abs().max()) + g_rtol * r.abs()
+                errs.append(float(diff.max()))
+                share = max(share, float(torch.where(diff > 0, diff / limit, 0.0).max()))
+                ok = ok and bool(torch.isfinite(g).all()) and bool((diff <= limit).all())
+            bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
+            phase("k4-bwd-check", case=f"{name}-{tag}", shape=f"B{B}H{Hq}/{Hkv}Tq{Tq}Tk{Tk}D{D}",
+                  q_offset=off, tk_valid=valid, lse_err=f"{lse_err:.3e}",
+                  dq_err=f"{errs[0]:.3e}", dk_err=f"{errs[1]:.3e}", dv_err=f"{errs[2]:.3e}",
+                  grad_rtol=g_rtol, grad_atol=g_atol, share_of_limit=f"{share:.3f}",
+                  bitwise_repeat=bitwise)
+            if not ok:
+                raise AssertionError(f"K4's backward disagrees with its plain version: {name} "
+                                     f"{tag}")
+            if not bitwise:
+                raise AssertionError(f"K4's backward is not bitwise repeatable: {name} {tag}")
+            del q, k, v, do, out, lse, grads, again, ref
+    torch.cuda.empty_cache()
+
+
+def flash_attention_bwd_at_train_shape(dev) -> dict:
+    """K4's backward at the training shape (B 4, 24/8 heads, 1024 tokens, D
+    128, causal, f32): the two launches' device time by the profiler and by
+    CUDA events, the plain version's time, the library yardstick (the
+    backward of ``scaled_dot_product_attention(..., is_causal=True,
+    enable_gqa=True)`` in fp32, timed only; the port never calls it) and the
+    bounds: 10 B Hq pairs D FLOP as three TF32 products on the tensor cores
+    (the least time fp32-accurate products take on the card, as for K1 and
+    K4's forward) and, beside it, over the CUDA cores' fp32 rate (the units
+    the kernel computes on); the bytes of q, k, v, o, dO, lse in and dq, dk,
+    dv out.
+    Returns the numbers for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.kernels.flash_attention.autograd import kernel_forward
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    c = FA_BWD_SHAPE
+    B, Hq, Hkv, T, D = c["B"], c["Hq"], c["Hkv"], c["T"], c["D"]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, k, v, do = _fa_bwd_inputs(dev, gen, B, Hq, Hkv, T, T, D, torch.float32, None)
+    out, lse = kernel_forward(q, k, v, causal=True, window=None, softcap=None, q_offset=0,
+                              kv_len=None)
+
+    def bwd():
+        return k4.flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=True)
+
+    grads = bwd()
+    ref = attention_bwd_ref(q, k, v, out, do, lse, causal=True)
+    torch.cuda.synchronize()
+    rtol, atol = FA_TOL["float32"]
+    err, ok = 0.0, True
+    for g, r in zip(grads, ref):
+        scale = float(r.abs().max())
+        err = max(err, float((g - r).abs().max()))
+        ok = ok and bool(((g - r).abs() <= atol * scale + rtol * r.abs()).all())
+    if not ok:
+        raise AssertionError(f"K4's backward at the training shape: max|err| {err:.3e}")
+    del grads, ref
+    steps = kernel_device_ms(bwd, 20, dict(dq="attention_bwd_dq_kernel",
+                                           dkdv="attention_bwd_dkdv_kernel"))
+    if steps["other"] > 0:
+        raise AssertionError("the backward launched kernels besides its two")
+    ms = steps["dq"] + steps["dkdv"]
+    event_ms = time_ms(bwd, 10)
+    plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, out, do, lse, causal=True), 3)
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    lib_diff = float((lib_out.detach() - out).abs().max())
+    lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True),
+                     10)
+    pairs = T * (T + 1) // 2
+    flops = 10.0 * B * Hq * pairs * D
+    dq_ctas, dkdv_ctas = k4.bwd_plan(D).ctas(B, Hq, Hkv, T, T)
+    nbytes = 4 * (3 * q.numel() + 2 * k.numel() + lse.numel()) + 4 * (q.numel() + 2 * k.numel())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_fp32 = flops / FP32_FLOPS * 1e3
+    t_tf32 = 3 * flops / TF32_FLOPS * 1e3
+    bound, bound_fp32 = max(t_bytes, t_tf32), max(t_bytes, t_fp32)
+    bound_by = "bytes" if t_bytes >= t_tf32 else "operations"
+    phase("k4-bwd-shape", B=B, Hq=Hq, Hkv=Hkv, T=T, D=D, causal=True, dtype="float32",
+          dq_ctas=dq_ctas, dkdv_ctas=dkdv_ctas, dq_ms=f"{steps['dq']:.4f}",
+          dkdv_ms=f"{steps['dkdv']:.4f}", bwd_ms=f"{ms:.4f}",
+          bwd_event_ms=f"{event_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=bound_by,
+          bound_fp32_cores_ms=f"{bound_fp32:.4f}", bytes_bound_ms=f"{t_bytes:.4f}",
+          share_of_bound=f"{bound / ms:.3f}", gflop=f"{flops / 1e9:.2f}",
+          tflops=f"{flops / ms / 1e9:.2f}", plain_ms=f"{plain_ms:.3f}",
+          sdpa_bwd_ms=f"{lib_ms:.4f}", sdpa_fwd_max_abs_diff=f"{lib_diff:.3e}",
+          max_abs_err=f"{err:.3e}")
+    del q, k, v, do, out, lse, ql, kl, vl, lib_out
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
+                max_abs_err=err, bound_fp32_cores_ms=bound_fp32)
+
+
+def train_main_path(dev) -> dict:
+    """phi4-mini-3.8b at full width, 8 layers, through ``launch/train``
+    (remat on, AdamW, the synthetic stream): batch 8 in 2 microbatches of
+    4 x 1024 tokens, 4 steps, every attention's forward on K4 and its
+    backward on the backward kernel.  The launch counts are reset just
+    before the run and must be exact: K4's forward twice a layer and
+    microbatch (remat recomputes it), the backward's two launches once.
+    Every loss finite, and at step 1 every gradient leaf finite and not all
+    zero.  Returns the launches."""
+    import os
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.launch import train
+
+    c = TRAIN
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    os.environ["REPRO_TRAIN_OVERRIDES"] = f"n_layers={c['n_layers']}"
+    try:
+        k4.flash_attention_cuda.launches = k4.flash_attention_bwd_cuda.launches = 0
+        res = train.run(["--arch", c["arch"], "--steps", str(c["steps"]), "--batch",
+                         str(c["batch"]), "--seq", str(c["seq"]), "--n-micro", str(c["n_micro"]),
+                         "--log-every", "1"])
+        fwd, bwd = k4.flash_attention_cuda.launches, k4.flash_attention_bwd_cuda.launches
+    finally:
+        del os.environ["REPRO_TRAIN_OVERRIDES"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cfg = res["cfg"]
+    for rec in res["history"]:
+        phase("train", step=rec["step"] + 1, loss=f"{rec['loss']:.6f}",
+              grad_norm=f"{rec['grad_norm']:.6f}", lr=f"{rec['lr']:.3e}",
+              step_ms=f"{rec['ms']:.1f}", tokens_per_s=f"{rec['tokens_per_s']:.1f}")
+    calls = cfg.n_layers * c["n_micro"] * c["steps"]
+    sq = res["history"][0]["grad_leaf_sq"]
+    phase("train", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+          heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", head_dim=cfg.head_dim_, d_ff=cfg.d_ff,
+          vocab=cfg.vocab, params=cfg.n_params(), batch=c["batch"], n_micro=c["n_micro"],
+          seq=c["seq"], steps=c["steps"], remat="full", wall_s=f"{res['wall_s']:.3f}",
+          max_memory_allocated_gb=f"{peak:.3f}", k4_fwd_launches=fwd,
+          k4_bwd_launches=bwd, grad_leaves=len(sq),
+          step1_min_leaf_sq=f"{float(np.min(sq)):.3e}")
+    if not all(np.isfinite(r["loss"]) for r in res["history"]):
+        raise AssertionError("a training loss is not finite")
+    if not (np.all(np.isfinite(sq)) and np.all(sq > 0)):
+        raise AssertionError(f"at step 1 {int(np.sum(~(sq > 0)))} gradient leaves are zero or "
+                             "not finite")
+    if fwd != 2 * calls or bwd != k4.BWD_LAUNCHES * calls:
+        raise AssertionError(f"K4 launched {fwd} forwards and {bwd} backward kernels, expected "
+                             f"{2 * calls} and {k4.BWD_LAUNCHES * calls}")
+    torch.cuda.empty_cache()
+    return dict(fwd=fwd, bwd=bwd)
+
+
+def profile_train_step(dev) -> None:
+    """Where a training step's time goes: torch.profiler over one step of
+    the [train] configuration after a warm-up step; the device's busy time
+    against the step's span (CUDA events), by kernel family (the fp32
+    products, K4's forward, its backward), the device span of AdamW's
+    update and of the loss's forward (the cross entropy over the vocab,
+    after the LM head's product), each from a profiler range put around
+    the port's function for this step only, and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.models import model as model_mod
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import make_train_step
+
+    c = TRAIN
+    cfg = get_config(c["arch"], n_layers=c["n_layers"])
+    model = build_model(cfg, remat=True)
+    params = model.init(0, device=dev)
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=0, total_steps=c["steps"])
+    opt_state = adamw.init(params)
+    step = make_train_step(model, opt_cfg, c["n_micro"], pre_shaped=True, device=dev)
+    data = SyntheticLM(cfg.vocab, c["seq"], c["batch"], n_micro=c["n_micro"], seed=0)
+
+    def batch(i):
+        return {k: torch.as_tensor(v, device=dev) for k, v in data.batch(i).items()}
+
+    params, opt_state, _ = step(params, opt_state, batch(0))
+    b = batch(1)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ranges = {"adamw": (adamw, "apply"), "cross_entropy_fwd": (model_mod, "cross_entropy")}
+    saved = {name: getattr(mod, fn) for name, (mod, fn) in ranges.items()}
+
+    def in_range(name, fn):
+        def run(*args, **kwargs):
+            with record_function(f"train:{name}"):
+                return fn(*args, **kwargs)
+        return run
+
+    try:
+        for name, (mod, fn) in ranges.items():
+            setattr(mod, fn, in_range(name, saved[name]))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
+            params, opt_state, _ = step(params, opt_state, b)
+            end.record()
+            end.synchronize()
+    finally:
+        for name, (mod, fn) in ranges.items():
+            setattr(mod, fn, saved[name])
+    span = start.elapsed_time(end)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # A range appears on the device's timeline too, as the span from its
+    # first kernel's start to its last's end; it is no kernel.
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    spans = {e.key: dev_us(e) / 1e3 for e in events if e.key.startswith("train:")}
+
+    def range_ms(name):
+        ms = spans.get(f"train:{name}", 0.0)
+        return f"{ms:.1f}" if ms > 0 else "not-measured"
+
+    kern = [e for e in events if dev_us(e) > 0 and not e.key.startswith("train:")]
+    # The profiler can drop kernel records (kernel_device_ms): the launches
+    # the host made (every runtime and driver launch call) against the
+    # records kept say how many.
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type != DeviceType.CUDA and "LaunchKernel" in e.key)
+    records = sum(e.count for e in kern)
+    busy = sum(dev_us(e) for e in kern) / 1e3
+    fam = dict(gemm=0.0, k4_fwd=0.0, k4_bwd=0.0)
+    for e in kern:
+        key = ("k4_bwd" if "attention_bwd_" in e.key else
+               "k4_fwd" if "flash_attention_" in e.key else
+               "gemm" if "gemm" in e.key.lower() or "splitkreduce" in e.key.lower() else None)
+        if key:
+            fam[key] += dev_us(e) / 1e3
+    top = sorted(kern, key=dev_us, reverse=True)[:8]
+    phase("train-profile", arch=cfg.name, layers=cfg.n_layers, step_span_ms=f"{span:.1f}",
+          kernel_launches=launches, kernel_records=records,
+          device_busy_ms=f"{busy:.1f}" if kern else "not-measured",
+          idle_share=f"{1 - busy / span:.3f}" if kern else "not-measured",
+          gemm_ms=f"{fam['gemm']:.1f}", k4_fwd_ms=f"{fam['k4_fwd']:.2f}",
+          k4_bwd_ms=f"{fam['k4_bwd']:.2f}",
+          other_ms=f"{busy - sum(fam.values()):.1f}", adamw_ms=range_ms("adamw"),
+          cross_entropy_fwd_ms=range_ms("cross_entropy_fwd"),
+          top=";".join(f"{e.key[:56]}={dev_us(e) / 1e3:.2f}ms/{e.count}" for e in top))
+    del params, opt_state, model
+    torch.cuda.empty_cache()
+
+
+def train_card_vs_cpu(dev) -> None:
+    """phi4-mini's full width at 2 layers with the same weights and tokens
+    on the card (K4 forward and backward, cuBLAS) and on the CPU (the plain
+    versions): the loss and every gradient leaf, then one AdamW step on the
+    CPU's gradients given to both."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import value_and_grad
+
+    c = TRAIN_CARD_VS_CPU
+    cfg = get_config(TRAIN["arch"], n_layers=c["n_layers"])
+    model = build_model(cfg, remat=True)
+    on_card = model.init(2, device=dev)
+    on_cpu = tree_map(lambda t: t.cpu(), on_card)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, size=(c["B"], c["T"] + 1))
+    toks = toks.astype(np.int32)
+    runs = []
+    for params, d in ((on_card, dev), (on_cpu, torch.device("cpu"))):
+        batch = {"tokens": torch.as_tensor(toks[:, :-1], device=d),
+                 "labels": torch.as_tensor(toks[:, 1:], device=d)}
+        loss, grads = value_and_grad(model.loss_fn, params, batch)
+        runs.append((float(loss), [g.cpu() for g in tree_leaves(grads)], grads))
+    (l_card, g_card, _), (l_cpu, g_cpu, grads_cpu) = runs
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    worst = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(g_card, g_cpu))
+    live = all(bool(torch.isfinite(a).all()) and bool((a != 0).any()) for a in g_card)
+    # One AdamW step on the CPU's gradients, on both devices.
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=0, total_steps=4)
+    grads_card = tree_map(lambda g: g.to(dev), grads_cpu)
+    p_card, _, m_card = adamw.apply(opt_cfg, on_card, grads_card, adamw.init(on_card))
+    p_cpu, _, m_cpu = adamw.apply(opt_cfg, on_cpu, grads_cpu, adamw.init(on_cpu))
+    opt_err = max(float(((a.cpu() - b).abs() / (1 + b.abs())).max())
+                  for a, b in zip(tree_leaves(p_card), tree_leaves(p_cpu)))
+    phase("train-card-vs-cpu", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+          B=c["B"], T=c["T"], loss_card=f"{l_card:.7f}", loss_cpu=f"{l_cpu:.7f}",
+          loss_rel_diff=f"{loss_rel:.3e}", worst_leaf_rel_diff=f"{worst:.3e}",
+          grad_leaves=len(g_card), all_leaves_live=live,
+          grad_norm_card=f"{float(m_card['grad_norm']):.6f}",
+          grad_norm_cpu=f"{float(m_cpu['grad_norm']):.6f}", adamw_max_diff=f"{opt_err:.3e}",
+          loss_rtol=c["loss_rtol"], grad_tol=c["grad_tol"], opt_tol=c["opt_tol"])
+    if not loss_rel <= c["loss_rtol"]:
+        raise AssertionError(f"card and CPU losses differ by {loss_rel:.3e} relative")
+    if not (live and worst <= c["grad_tol"]):
+        raise AssertionError(f"card and CPU gradients differ by {worst:.3e} of a leaf's max")
+    if not opt_err <= c["opt_tol"]:
+        raise AssertionError(f"card and CPU AdamW steps differ by {opt_err:.3e}")
+    del on_card, on_cpu, grads_card, p_card, p_cpu
+    torch.cuda.empty_cache()
+
+
+def _one_straggler(code, pats, ws, R: int):
+    """A weight pattern that drops one worker's own gradient (the reference
+    test's choice): from the table, else the decode weights without worker 0."""
+    import numpy as np
+    from repro_torch.core import gradient_coding as gc
+    for pat, w in zip(pats[1:], ws[1:]):
+        if len(np.flatnonzero(~pat[:R])) == 1:
+            return w
+    surv = np.setdiff1d(np.arange(R + code.K), [0])
+    w = np.zeros(R + code.K, np.float32)
+    w[surv] = gc.decode_weights(code, surv)
+    return w
+
+
+def coded_dp_train(dev) -> None:
+    """The coded data-parallel step on the card: the reference test's setup
+    (tests/test_coded_train_step.py: mistral-nemo-12b smoke, R=8, 4
+    parities), the updates with no straggler and with one within 5e-5 of
+    the uncoded update; then at phi4-mini's full width (2 layers) the coded
+    gradient sums within 1e-5 of the uncoded sum, relative to its max."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import make_coded_train_step, value_and_grad
+
+    c = CODED
+    R = c["R"]
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, schedule="constant", weight_decay=0.0)
+
+    def clone(tree):
+        return tree_map(lambda x: x.clone(), tree)
+
+    def uncoded_sum(model, params, batch):
+        g = None
+        for r in range(R):
+            _, gi = value_and_grad(model.loss_fn, params, {k: v[r] for k, v in batch.items()})
+            g = gi if g is None else tree_map(lambda a, b: a + b, g, gi)
+        return g
+
+    def batch_of(cfg, mb, T, seed):
+        tok = np.random.default_rng(seed).integers(0, cfg.vocab, size=(R, mb, T)).astype(np.int32)
+        t = torch.as_tensor(tok, device=dev)
+        return {"tokens": t, "labels": t}
+
+    # The reference test's setup.
+    cfg = get_config("mistral-nemo-12b", smoke=True)
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    step, code, (pats, ws) = make_coded_train_step(model, opt_cfg, R, n_parity=c["n_parity"],
+                                                   seed=0, device=dev)
+    batch = batch_of(cfg, c["mb"], c["T"], 1)
+    gref = tree_map(lambda g: g / R, uncoded_sum(model, params, batch))
+    pref, _, _ = adamw.apply(opt_cfg, clone(params), gref, adamw.init(params))
+    errs = {}
+    for name, w in (("no_straggler", ws[0]), ("one_straggler", _one_straggler(code, pats, ws, R))):
+        p, _, m = step(clone(params), adamw.init(params), batch, w)
+        errs[name] = max(float((a - b).abs().max())
+                         for a, b in zip(tree_leaves(pref), tree_leaves(p)))
+        errs[f"{name}_loss"] = float(m["loss"])
+    phase("coded-dp-train", cfg=cfg.name, R=R, K=code.K, mb=c["mb"], T=c["T"],
+          err_no_straggler=f"{errs['no_straggler']:.3e}",
+          err_one_straggler=f"{errs['one_straggler']:.3e}",
+          loss=f"{errs['no_straggler_loss']:.6f}", tol=c["tol"])
+    if not (errs["no_straggler"] < c["tol"] and errs["one_straggler"] < c["tol"]
+            and errs["no_straggler_loss"] > 0):
+        raise AssertionError(f"the coded update misses the uncoded one: {errs}")
+
+    # phi4-mini's full width at 2 layers: the gradient sums.
+    cfg = get_config(TRAIN["arch"], n_layers=c["full_layers"])
+    model = build_model(cfg, remat=True)
+    params = model.init(3, device=dev)
+    step, code, (pats, ws) = make_coded_train_step(model, opt_cfg, R, n_parity=c["n_parity"],
+                                                   seed=0, device=dev)
+    batch = batch_of(cfg, c["full_mb"], c["full_T"], 3)
+    ref = tree_leaves(uncoded_sum(model, params, batch))
+    rel = {}
+    t0 = time.perf_counter()
+    for name, w in (("no_straggler", ws[0]), ("one_straggler", _one_straggler(code, pats, ws, R))):
+        g, _ = step.grads(params, batch, w)
+        rel[name] = max(float((a - b).abs().max()) / float(b.abs().max())
+                        for a, b in zip(tree_leaves(g), ref))
+        del g
+    torch.cuda.synchronize()
+    phase("coded-dp-train", cfg=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, R=R,
+          K=code.K, mb=c["full_mb"], T=c["full_T"],
+          rel_err_no_straggler=f"{rel['no_straggler']:.3e}",
+          rel_err_one_straggler=f"{rel['one_straggler']:.3e}", rtol=c["full_rtol"],
+          wall_s=f"{time.perf_counter() - t0:.3f}")
+    if not max(rel.values()) <= c["full_rtol"]:
+        raise AssertionError(f"the coded gradient sum misses the uncoded one: {rel}")
+    del params, ref, model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1893,6 +2408,7 @@ def main() -> int:
     libs = _nvcc.build_all(_nvcc.sources())
     for k in (k1, k2, k3, k4):
         k._lib()
+    k4._bwd_lib()
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}",
           sources=",".join(libs))
     for name, lib in libs.items():
@@ -1984,7 +2500,19 @@ def main() -> int:
     fa["launches"] = serve_main_path(dev)
     serve_card_vs_cpu(dev)
 
-    # 12. Every kernel of the paths.
+    # 12. LM training: K4's backward against its plain version and at the
+    # training shape, then phi4-mini at full width (8 layers) through
+    # launch/train (both kernels' launches reset just before the run), one
+    # step under the profiler, the card against the CPU, and coded DP.
+    check_flash_attention_bwd(dev)
+    fa_bwd = flash_attention_bwd_at_train_shape(dev)
+    train_launches = train_main_path(dev)
+    fa_bwd["launches"] = train_launches["bwd"]
+    profile_train_step(dev)
+    train_card_vs_cpu(dev)
+    coded_dp_train(dev)
+
+    # 13. Every kernel of the paths.
     print(json.dumps({"kernels": [
         dict(name="coded_matmul", route="cuda",
              source="src/repro_torch/csrc/coded_matmul.cu",
@@ -1997,6 +2525,9 @@ def main() -> int:
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:100", **fa),
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention/ref.py:19", **fa_bwd),
     ]}), flush=True)
     for name, k in lt.items():
         if k["launches"] < 1:

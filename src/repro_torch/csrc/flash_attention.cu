@@ -13,7 +13,10 @@
 // a zero row where no key is valid.  The output has q's type (fp32 or bf16).
 // q_offset and tk_valid are launch arguments, so a decode loop neither
 // recompiles nor syncs, and only the tk_valid prefix of a cache buffer of any
-// length is read.
+// length is read.  Given an lse buffer (training: kernels/flash_attention/
+// autograd.py), every instance also stores each row's log-sum-exp m + log l
+// of its masked scores, which flash_attention_bwd.cu reads; without one
+// (serving, every call under no_grad) nothing else changes.
 //
 // What bounds it on this card.  A long prefill does 4·Tq·Tk·D/2 FMAs for
 // Tq·D + 2·Tk·D inputs: bound by operations.  In fp32 on the CUDA cores (67
@@ -119,21 +122,17 @@
 
 #include <type_traits>
 
+#include "attention_rows.cuh"
 #include "tma.cuh"
 
 namespace {
 
 using namespace hopper;
+using attn::load4;
+using attn::stage_rows;
+using tiles::from_f32;
 
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-    return __float2bfloat16(v);
-}
 
 struct Args {
     const void* q;
@@ -142,6 +141,7 @@ struct Args {
     void* out;
     float* part;  // split partials: (m, l) per row, then o per row (n_split > 1)
     int* ticket;  // one counter per (b, KV head, query tile), 0 between launches
+    float* lse;   // (B, Hq, Tq) row log-sum-exps for the backward; nullptr: none
     int B, Hq, Hkv, Tq, Tk, D;
     long long qs_b, qs_h, qs_t, ks_b, ks_h, ks_t, vs_b, vs_h, vs_t;  // element strides
     int q_offset, tk_valid, causal, window;  // window <= 0: none
@@ -182,58 +182,6 @@ __device__ __forceinline__ void stage_rows_async(float* __restrict__ dst, int D,
         const float* src = row_ptr(r);
         const bool ok = src != nullptr && c4 < D;
         cp_async16(&dst[r * LD + c4], ok ? src + c4 : any, ok ? 16 : 0);
-    }
-}
-
-// Four consecutive elements at p (16-byte aligned for float32, 8-byte for
-// bfloat16), through the read-only path, as float.
-__device__ __forceinline__ float4 load4(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-    return make_float4(to_f32(e[0]), to_f32(e[1]), to_f32(e[2]), to_f32(e[3]));
-}
-
-// Rows [0, ROWS) of a (ROWS, DMAX) shared tile with row stride LD, from the
-// global rows that row_ptr gives (nullptr: zeros), columns >= D zero-filled.
-// VEC (D and every row a multiple of 4 elements, aligned): each thread owns
-// 4 columns and issues up to 8 row loads before it stores any, so a CTA
-// keeps many loads in flight (a decode step has only B * Hkv CTAs).
-// Otherwise one element per thread and load.
-template <typename T, int DMAX, int ROWS, int LD, int THREADS, typename RowPtr>
-__device__ __forceinline__ void stage_rows(float* __restrict__ dst, int D, bool vec,
-                                           RowPtr row_ptr) {
-    if (vec) {
-        constexpr int TPR = DMAX / 4, RPI = THREADS / TPR, PASSES = ROWS / RPI;
-        constexpr int UNR = PASSES < 8 ? PASSES : 8;
-        static_assert(THREADS % TPR == 0 && ROWS % RPI == 0 && PASSES % UNR == 0, "tiling");
-        const int r0 = threadIdx.x / TPR, c4 = threadIdx.x % TPR * 4;
-#pragma unroll
-        for (int p0 = 0; p0 < PASSES; p0 += UNR) {
-            float4 v[UNR];
-#pragma unroll
-            for (int u = 0; u < UNR; ++u) {
-                const T* src = row_ptr(r0 + (p0 + u) * RPI);
-                v[u] = (src != nullptr && c4 < D) ? load4(src + c4)
-                                                  : make_float4(0.f, 0.f, 0.f, 0.f);
-            }
-#pragma unroll
-            for (int u = 0; u < UNR; ++u)
-                *reinterpret_cast<float4*>(&dst[(r0 + (p0 + u) * RPI) * LD + c4]) = v[u];
-        }
-        return;
-    }
-    constexpr int TPR = DMAX < THREADS ? DMAX : THREADS;  // threads per row
-    constexpr int RPI = THREADS / TPR;                    // rows per pass
-    const int r0 = threadIdx.x / TPR, d0 = threadIdx.x % TPR;
-#pragma unroll 4
-    for (int r = r0; r < ROWS; r += RPI) {
-        const T* src = row_ptr(r);
-#pragma unroll
-        for (int d = d0; d < DMAX; d += TPR)
-            dst[r * LD + d] = (src != nullptr && d < D) ? to_f32(src[d]) : 0.f;
     }
 }
 
@@ -466,6 +414,9 @@ flash_attention_kernel(const Args a) {
             const int t = ig / group, h = hk * group + (ig - t * group);
             T* orow = out + (((size_t)b * a.Hq + h) * a.Tq + t) * D;
             const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;  // one division a row
+            if (a.lse != nullptr && tx == 0)
+                a.lse[((size_t)b * a.Hq + h) * a.Tq + t] =
+                    l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
 #pragma unroll
             for (int jd = 0; jd < NJ; ++jd)
 #pragma unroll
@@ -545,6 +496,8 @@ flash_attention_kernel(const Args a) {
         const int t = ig / group, h = hk * group + (ig - t * group);
         T* orow = out + (((size_t)b * a.Hq + h) * a.Tq + t) * D;
         const float inv = L > 0.f ? 1.f / L : 0.f;
+        if (a.lse != nullptr && tx == 0)
+            a.lse[((size_t)b * a.Hq + h) * a.Tq + t] = L > 0.f ? M + logf(L) : -INFINITY;
 #pragma unroll
         for (int jd = 0; jd < NJ; ++jd)
 #pragma unroll
@@ -587,6 +540,7 @@ constexpr int THREADS = 256;            // two warpgroups (a producer warp would
 constexpr int TILE = BK * DMAX;          // floats of one K/V tile or plane: 32 KB
 constexpr size_t SMEM = sizeof(float) * (5 * TILE + BQ * DMAX) + 1024;  // + alignment
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 }  // namespace wg
 
 // Q is staged raw (fp32), once a CTA, with each row's d permuted so that the
@@ -968,6 +922,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ KvMaps maps, const Args a) 
         float* orow = out + (((size_t)b * a.Hq + h) * a.Tq + tq) * D;
         const bool any = l[rr] > 0.f;  // else a zero row, as when l is NaN
         const float inv = any ? 1.f / l[rr] : 0.f;
+        if (a.lse != nullptr && t == 0)  // m and l are in base 2
+            a.lse[((size_t)b * a.Hq + h) * a.Tq + tq] =
+                any ? (m[rr] + log2f(l[rr])) * LN2 : -INFINITY;
 #pragma unroll
         for (int i = 0; i < 64; i += 4) {  // columns 64 (i / 32) + 8 (i % 32 / 4) + 2t, + 1
             const int d = 64 * (i >> 5) + 2 * (i & 31) + 2 * t;
@@ -1036,20 +993,23 @@ extern "C" {
 // (B, Hkv, Tk, D), each given by its element strides over (B, H, T) with the
 // last dimension contiguous (dtype 0: float32, 1: bfloat16, all four alike);
 // vec != 0 asserts D, every stride and every pointer allow 4-element loads.
+// lse, when not null, receives each row's log-sum-exp of its masked scores,
+// (B, Hq, Tq) float32 (-inf for a row with no valid key), for the backward.
 // n_split > 1 splits each query tile's keys into chunks of `chunk` keys
 // over that many CTAs; part then holds B * Hkv * tiles * n_split * BQ *
 // (2 + DMAX) floats and ticket B * Hkv * tiles zeroed ints, which the
 // launch leaves zero (both unused when n_split == 1).  Launches on
 // `stream` and returns the first CUDA error.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* out, void* part,
-                           void* ticket, int B, int Hq, int Hkv, int Tq, int Tk, int D,
+                           void* ticket, void* lse, int B, int Hq, int Hkv, int Tq, int Tk, int D,
                            int qs_b, int qs_h, int qs_t, int ks_b, int ks_h, int ks_t, int vs_b,
                            int vs_h, int vs_t, int q_offset, int tk_valid, int causal, int window,
                            int vec, int n_split, int chunk, int dtype, float scale,
                            float softcap, void* stream) {
     if (n_split < 1 || (n_split > 1 && (part == nullptr || ticket == nullptr || chunk < 1)))
         return static_cast<int>(cudaErrorInvalidValue);
-    const Args a{q, k, v, out, static_cast<float*>(part), static_cast<int*>(ticket), B, Hq, Hkv,
+    const Args a{q, k, v, out, static_cast<float*>(part), static_cast<int*>(ticket),
+                 static_cast<float*>(lse), B, Hq, Hkv,
                  Tq, Tk, D, qs_b, qs_h, qs_t, ks_b, ks_h, ks_t, vs_b, vs_h, vs_t, q_offset,
                  tk_valid, causal, window, vec, n_split, chunk, scale, softcap};
     cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -5,7 +5,8 @@ construction is a copy, so these constructors let a test hand the port the
 exact objects the reference built: an LT code or a coded-matmul plan from
 the reference's tables, helper/packet tables, churn and transport dynamics
 and fleet tables the reference drew (in this system they play the part that model weights play
-elsewhere), and the reference's LM parameter tree.
+elsewhere), the reference's LM parameter tree (and gradients, which share
+its tree) and its AdamW state.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ from . import _device
 from .core import engine, fountain
 from .core.coded_matmul import CodedMatmulPlan
 
-__all__ = ["dynamics_from_numpy", "fleet_tables_from_numpy", "lm_params_from_numpy",
-           "lt_code_from_arrays", "plan_from_arrays", "tables_from_numpy"]
+__all__ = ["adamw_state_from_numpy", "dynamics_from_numpy", "fleet_tables_from_numpy",
+           "lm_params_from_numpy", "lt_code_from_arrays", "plan_from_arrays",
+           "tables_from_numpy"]
 
 
 def lt_code_from_arrays(idx, mask, coef, R: int, K: int) -> fountain.LTCode:
@@ -132,3 +134,23 @@ def lm_params_from_numpy(cfg, tree, device=None) -> dict:
     params["blocks"] = [conv(stacked[f"b{i % period}"], i // period)
                         for i in range(cfg.n_layers)]
     return params
+
+
+def adamw_state_from_numpy(state, cfg=None, device=None):
+    """The port's ``optim.adamw.AdamWState`` from the reference's (``step``,
+    ``m``, ``v``; leaves as numpy arrays): the step as an int, the moments
+    as float32 tensors on ``device`` (CUDA by default).  With a model
+    ``cfg`` the moments are LM trees and take the port's per-layer layout
+    (:func:`lm_params_from_numpy`); otherwise their dicts and lists are
+    kept as they are."""
+    from .models.common import tree_map
+    from .optim import adamw
+
+    dev = _device.resolve(device)
+
+    def conv(tree):
+        if cfg is not None:
+            return lm_params_from_numpy(cfg, tree, dev)
+        return tree_map(lambda x: torch.tensor(np.asarray(x, np.float32), device=dev), tree)
+
+    return adamw.AdamWState(step=int(np.asarray(state.step)), m=conv(state.m), v=conv(state.v))

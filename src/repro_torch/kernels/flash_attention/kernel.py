@@ -28,6 +28,12 @@ tickets zeroed) when a launch first needs them or needs more, and reused:
 every launch leaves the tickets zero, so a call adds no launch and no
 allocation of its own.  Launches that share a device's scratch must not
 run at the same time on two streams.
+
+Training: given ``lse``, a (B, Hq, Tq) float32 buffer, the forward also
+stores each row's log-sum-exp for :func:`flash_attention_bwd_cuda`, the
+wrapper of the backward kernel ``csrc/flash_attention_bwd.cu`` (two launches
+a call, counted in ``flash_attention_bwd_cuda.launches``; :func:`bwd_plan`
+is its tiling).  ``autograd.FlashAttentionFn`` joins the two.
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ import torch
 from .. import _nvcc
 
 SOURCE = "flash_attention.cu"
+BWD_SOURCE = "flash_attention_bwd.cu"
+BWD_LAUNCHES = 2    # launches of one backward call: dQ (and D), then dK and dV
 MAX_HEAD_DIM = 256
 _INT_MAX = 2**31 - 1
 KEY_TILE = 64       # BK of csrc/flash_attention.cu
@@ -114,28 +122,21 @@ def _split_scratch(device: torch.device, n_part: int,
 
 
 def _lib():
-    return _nvcc.bind(SOURCE, "flash_attention", 6, 23, 2)
+    return _nvcc.bind(SOURCE, "flash_attention", 7, 23, 2)
 
 
-def flash_attention_cuda(
-    q: torch.Tensor,  # (B, Hq, Tq, D) float32 or bfloat16
-    k: torch.Tensor,  # (B, Hkv, Tk, D), q's type
-    v: torch.Tensor,  # (B, Hkv, Tk, D), q's type
-    *,
-    causal: bool = True,
-    window: Optional[int] = None,
-    softcap: Optional[float] = None,
-    q_offset: int = 0,
-    tk_valid: Optional[int] = None,
-) -> torch.Tensor:
-    """Attention of q over the first ``tk_valid`` keys of k, v (all of them
-    by default), q row t at absolute position ``q_offset + t``; a (B, Hq,
-    Tq, D) contiguous tensor of q's type.  Semantics of
-    ``ref.attention_ref(..., kv_len=tk_valid)``."""
+def _bwd_lib():
+    _nvcc.bind(BWD_SOURCE, "flash_attention_bwd_dq", 10, 27, 2)
+    return _nvcc.bind(BWD_SOURCE, "flash_attention_bwd_dkdv", 10, 27, 2)
+
+
+def _check_qkv(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """The checks the forward and the backward share; returns (B, Hq, Hkv,
+    Tq, Tk, D)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
-            raise ValueError(f"flash_attention_cuda takes CUDA tensors; {name} is on "
-                             f"{t.device} (use ref.attention_ref there)")
+            raise ValueError(f"{fn} takes CUDA tensors; {name} is on "
+                             f"{t.device} (use the plain versions in ref.py there)")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, expected {q.device}")
         if t.dtype not in _nvcc.DTYPE_CODE or t.dtype != q.dtype:
@@ -152,6 +153,10 @@ def flash_attention_cuda(
         raise ValueError(f"Hq={Hq} not a multiple of Hkv={Hkv}")
     if not 0 < D <= MAX_HEAD_DIM:
         raise ValueError(f"head dim D={D} outside the kernel's range (1..{MAX_HEAD_DIM})")
+    return B, Hq, Hkv, Tq, Tk, D
+
+
+def _check_options(Tk: int, tk_valid, window, softcap) -> int:
     tk_valid = Tk if tk_valid is None else int(tk_valid)
     if not 0 <= tk_valid <= Tk:
         raise ValueError(f"tk_valid={tk_valid} outside [0, Tk={Tk}]")
@@ -159,17 +164,53 @@ def flash_attention_cuda(
         raise ValueError(f"window={window} must be >= 1")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap={softcap} must be > 0")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+    return tk_valid
+
+
+def _rows_vec(tensors, D: int) -> tuple:
+    """Each tensor with its last dimension contiguous, their (B, H, T)
+    element strides, and whether rows load as 4-element vectors (D, the
+    strides and the pointers allow it)."""
+    tensors = [t if t.stride(-1) == 1 else t.contiguous() for t in tensors]
+    strides = [s_ for t in tensors for s_ in t.stride()[:3]]
+    align = 4 * tensors[0].element_size()
+    vec = D % 4 == 0 and all(s_ % 4 == 0 for s_ in strides) and all(
+        t.data_ptr() % align == 0 for t in tensors)
+    return tensors, strides, vec
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,  # (B, Hq, Tq, D) float32 or bfloat16
+    k: torch.Tensor,  # (B, Hkv, Tk, D), q's type
+    v: torch.Tensor,  # (B, Hkv, Tk, D), q's type
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    q_offset: int = 0,
+    tk_valid: Optional[int] = None,
+    lse: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Attention of q over the first ``tk_valid`` keys of k, v (all of them
+    by default), q row t at absolute position ``q_offset + t``; a (B, Hq,
+    Tq, D) contiguous tensor of q's type.  Semantics of
+    ``ref.attention_ref(..., kv_len=tk_valid)``.  ``lse``, a (B, Hq, Tq)
+    contiguous float32 tensor on q's device, receives each row's
+    log-sum-exp (``ref.attention_lse_ref``; -inf for a row with no valid
+    key)."""
+    B, Hq, Hkv, Tq, Tk, D = _check_qkv("flash_attention_cuda", q, k, v)
+    tk_valid = _check_options(Tk, tk_valid, window, softcap)
+    (q, k, v), strides, vec = _rows_vec((q, k, v), D)
     if max(strides + [B, Hq, Tq, Tk, abs(q_offset) + Tq]) > _INT_MAX:
         raise ValueError("a size or stride exceeds the kernel's 32-bit arguments")
+    if lse is not None and (lse.shape != (B, Hq, Tq) or lse.dtype != torch.float32
+                            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 (B, Hq, Tq) = {(B, Hq, Tq)} "
+                         f"tensor on {q.device}; got {tuple(lse.shape)} {lse.dtype} on "
+                         f"{lse.device}")
     out = torch.empty((B, Hq, Tq, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    # Rows load as 4-element vectors where D, the strides and the pointers allow.
-    align = 4 * q.element_size()
-    vec = D % 4 == 0 and all(s_ % 4 == 0 for s_ in strides) and all(
-        t.data_ptr() % align == 0 for t in (q, k, v))
     plan = split_plan(B, Hq, Hkv, Tq, Tk, D, _sm_count(q.device),
                       vec and q.dtype == torch.float32)
     part = ticket = None
@@ -179,7 +220,8 @@ def flash_attention_cuda(
             q.device, n_tiles * plan.n_split * plan.bq * (2 + plan.dmax), n_tiles)
     _nvcc.launch(_lib(), "flash_attention", q.device, q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), out.data_ptr(), part.data_ptr() if part is not None else None,
-                 ticket.data_ptr() if ticket is not None else None, B, Hq, Hkv, Tq, Tk, D,
+                 ticket.data_ptr() if ticket is not None else None,
+                 lse.data_ptr() if lse is not None else None, B, Hq, Hkv, Tq, Tk, D,
                  *strides, int(q_offset), tk_valid, int(bool(causal)), int(window or 0),
                  int(vec), plan.n_split, plan.chunk, _nvcc.DTYPE_CODE[q.dtype],
                  1.0 / (D ** 0.5),  # the TPU kernel's scale
@@ -189,3 +231,79 @@ def flash_attention_cuda(
 
 
 flash_attention_cuda.launches = 0
+
+
+class BwdPlan(NamedTuple):
+    dmax: int       # head dim the instances are compiled for
+    dq_rows: int    # packed query rows a CTA of the dQ launch
+    dq_keys: int    # keys a tile of the dQ launch
+    kv_keys: int    # keys a CTA of the dK/dV launch
+    kv_rows: int    # packed query rows a tile of the dK/dV launch
+
+    def ctas(self, B: int, Hq: int, Hkv: int, Tq: int, Tk: int) -> tuple:
+        """CTAs of the two launches."""
+        rows = Hq // Hkv * Tq
+        return (-(-rows // self.dq_rows) * Hkv * B, -(-Tk // self.kv_keys) * Hkv * B)
+
+
+def bwd_plan(D: int) -> BwdPlan:
+    """The backward's tiles (as ``dispatch_dq``/``dispatch_dkdv`` in
+    csrc/flash_attention_bwd.cu pick them): 64 rows and 64 keys up to D =
+    128, 32 and 32 at D = 256.  Depends on the head dim only."""
+    if D <= 128:
+        return BwdPlan(64 if D <= 64 else 128, 64, 64, 64, 64)
+    return BwdPlan(256, 32, 32, 32, 32)
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor,    # (B, Hq, Tq, D) float32 or bfloat16
+    k: torch.Tensor,    # (B, Hkv, Tk, D), q's type
+    v: torch.Tensor,    # (B, Hkv, Tk, D), q's type
+    o: torch.Tensor,    # (B, Hq, Tq, D): the forward's output
+    do: torch.Tensor,   # (B, Hq, Tq, D): the output's gradient
+    lse: torch.Tensor,  # (B, Hq, Tq) float32: the forward's log-sum-exp
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    q_offset: int = 0,
+    tk_valid: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention_cuda` with
+    the same options, contiguous, of q's type: ``ref.attention_bwd_ref`` on
+    the card, in two launches (dQ and the rows' D, then dK and dV), each
+    counted in ``flash_attention_bwd_cuda.launches``.  Keys at or beyond
+    ``tk_valid`` get zero gradients."""
+    B, Hq, Hkv, Tq, Tk, D = _check_qkv("flash_attention_bwd_cuda", q, k, v)
+    tk_valid = _check_options(Tk, tk_valid, window, softcap)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must be q's shape {tuple(q.shape)}, type and device; got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if (lse.shape != (B, Hq, Tq) or lse.dtype != torch.float32 or lse.device != q.device):
+        raise ValueError(f"lse must be float32 (B, Hq, Tq) = {(B, Hq, Tq)} on {q.device}; got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    (q, k, v, o, do), strides, vec = _rows_vec((q, k, v, o, do), D)
+    lse = lse.contiguous()
+    if max(strides + [B, Hq, Tq, Tk, abs(q_offset) + Tq, B * Hq * Tq * D]) > _INT_MAX:
+        raise ValueError("a size or stride exceeds the kernel's 32-bit arguments")
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty((B, Hkv, Tk, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, Hq, Tq), dtype=torch.float32, device=q.device)
+    lib = _bwd_lib()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, Hq, Hkv, Tq, Tk, D, *strides, int(q_offset), tk_valid, int(bool(causal)),
+            int(window or 0), int(vec), _nvcc.DTYPE_CODE[q.dtype], 1.0 / (D ** 0.5),
+            float(softcap or 0.0))
+    _nvcc.launch(lib, "flash_attention_bwd_dq", q.device, *args)
+    flash_attention_bwd_cuda.launches += 1
+    _nvcc.launch(lib, "flash_attention_bwd_dkdv", q.device, *args)
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0

@@ -7,6 +7,11 @@ tensor to the plain version, with the reference's jnp dispatch:
 above.  The kernel masks ragged Tq/Tk itself and takes ``q_offset`` and
 ``tk_valid`` at run time, so unlike the reference's Pallas path nothing is
 padded, and the KV-cache path (prefill and decode) runs on it too.
+
+Where autograd records (grad mode on and q, k or v requiring grad), a CUDA
+call goes through ``autograd.FlashAttentionFn``: K4's forward with its
+log-sum-exp, and the backward kernel for the gradients.  The plain route is
+differentiable as it stands.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from .autograd import FlashAttentionFn
 from .kernel import flash_attention_cuda
 from .ref import attention_chunked, attention_ref
 
@@ -52,6 +58,8 @@ def flash_attention(
             f"use_kernel={use_kernel} but q is on {q.device}: the kernel runs "
             "on CUDA tensors and the plain version on CPU tensors")
     if use_kernel:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return FlashAttentionFn.apply(q, k, v, causal, window, softcap, q_offset, tk_valid)
         return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap,
                                     q_offset=q_offset, tk_valid=tk_valid)
     if k.shape[2] > CHUNKED_THRESHOLD:

@@ -6,6 +6,12 @@ masking, a sliding window, tanh softcap and GQA.
 
 These are the CPU route of :func:`..ops.flash_attention` and the oracle
 ``chip_smoke.py`` holds the CUDA kernel against on the card.
+
+The backward (:func:`attention_bwd_ref`, with the forward's log-sum-exp
+:func:`attention_lse_ref`) is the oracle of K4's backward kernel: the
+flash-attention-2 equations, which give the gradient that ``jax.vjp`` of the
+reference's ``attention_ref`` gives (the reference's Pallas kernel has no
+backward of its own).
 """
 
 from __future__ import annotations
@@ -256,3 +262,130 @@ def attention_3xtf32(
         m = m_new
     out = torch.where(l[..., None] > 0, o / torch.where(l > 0, l, 1.0)[..., None], 0.0)
     return out.to(q.dtype)
+
+
+# --- the backward ---------------------------------------------------------------
+
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The type the plain forward and backward compute in: float64 for
+    float64 inputs (``torch.autograd.gradcheck``), float32 otherwise."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _scores(q, k, *, causal, window, softcap, q_offset, kv_len):
+    """The scores S = softcap(q k^T / sqrt(D)) over the GQA-expanded keys,
+    (B, Hq, Tq, Tk) in the accumulation type, tanh(s / softcap) (None
+    without a softcap) and the mask of valid (query, key) pairs."""
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    acc = _acc(q)
+    kr = k.to(acc).repeat_interleave(Hq // Hkv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), kr) / torch.sqrt(
+        torch.tensor(D, dtype=acc))
+    th = None
+    if softcap is not None:
+        th = torch.tanh(s / softcap)
+        s = softcap * th
+    q_pos = q_offset + torch.arange(Tq, device=q.device)[:, None]
+    k_pos = torch.arange(Tk, device=q.device)[None, :]
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= (q_pos - k_pos) < window
+    return s, th, _kv_mask(mask, k_pos, kv_len, B)
+
+
+def attention_lse_ref(
+    q: torch.Tensor,  # (B, Hq, Tq, D)
+    k: torch.Tensor,  # (B, Hkv, Tk, D)
+    v: torch.Tensor,  # (B, Hkv, Tk, D), unused: the forward's signature
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    q_offset: int = 0,
+    kv_len: Optional[Union[int, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """The per-row log-sum-exp of the masked scores that the forward leaves
+    for the backward, (B, Hq, Tq) in float32 (float64 for float64 inputs);
+    -inf for a row with no valid key."""
+    s, _, mask = _scores(q, k, causal=causal, window=window, softcap=softcap,
+                         q_offset=q_offset, kv_len=kv_len)
+    return torch.logsumexp(torch.where(mask, s, -torch.inf), dim=-1)
+
+
+def _probs(s, mask, lse):
+    """P = exp(S - lse) on the valid pairs, 0 elsewhere; a row with no valid
+    key (lse = -inf) is all 0, never NaN."""
+    lse = torch.where(torch.isfinite(lse), lse, 0.0)
+    return torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+
+
+def attention_fwd_ref(
+    q: torch.Tensor,  # (B, Hq, Tq, D)
+    k: torch.Tensor,  # (B, Hkv, Tk, D)
+    v: torch.Tensor,  # (B, Hkv, Tk, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    q_offset: int = 0,
+    kv_len: Optional[Union[int, torch.Tensor]] = None,
+) -> tuple:
+    """Attention and its log-sum-exp, ``(out, lse)``: out = exp(S - lse) V,
+    in q's type, computed in float32 (float64 for float64 inputs).  The
+    semantics of :func:`attention_ref`; the plain forward the autograd
+    function is checked with."""
+    s, _, mask = _scores(q, k, causal=causal, window=window, softcap=softcap,
+                         q_offset=q_offset, kv_len=kv_len)
+    lse = torch.logsumexp(torch.where(mask, s, -torch.inf), dim=-1)
+    vr = v.to(s.dtype).repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    out = torch.einsum("bhqk,bhkd->bhqd", _probs(s, mask, lse), vr)
+    return out.to(q.dtype), lse
+
+
+def attention_bwd_ref(
+    q: torch.Tensor,    # (B, Hq, Tq, D)
+    k: torch.Tensor,    # (B, Hkv, Tk, D)
+    v: torch.Tensor,    # (B, Hkv, Tk, D)
+    o: torch.Tensor,    # (B, Hq, Tq, D): the forward's output
+    do: torch.Tensor,   # (B, Hq, Tq, D): the output's gradient
+    lse: torch.Tensor,  # (B, Hq, Tq): the forward's log-sum-exp
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    q_offset: int = 0,
+    kv_len: Optional[Union[int, torch.Tensor]] = None,
+) -> tuple:
+    """The gradients ``(dq, dk, dv)`` of attention, in the inputs' types,
+    computed in float32 (float64 for float64 inputs) by the
+    flash-attention-2 equations: P = exp(S - lse) on the valid pairs, dV =
+    P^T dO, dP = dO V^T, D_i = sum_d dO_id O_id, dS = P (dP - D), through
+    the softcap dS (1 - tanh^2(s / softcap)), dQ = dS K / sqrt(D) and dK =
+    dS^T Q / sqrt(D).  GQA: dK and dV sum over each KV head's group of query
+    heads.  A row with no valid key gives zero gradients."""
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    s, th, mask = _scores(q, k, causal=causal, window=window, softcap=softcap,
+                          q_offset=q_offset, kv_len=kv_len)
+    acc = s.dtype
+    p = _probs(s, mask, lse.to(acc))
+    do_, o_ = do.to(acc), o.to(acc)
+    vr = v.to(acc).repeat_interleave(group, dim=1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do_)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do_, vr)
+    delta = (do_ * o_).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    if th is not None:
+        ds = ds * (1 - th * th)
+    scale = 1 / torch.sqrt(torch.tensor(D, dtype=acc))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.to(acc).repeat_interleave(group, dim=1)) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(acc)) * scale
+
+    def fold(g):  # (B, Hq, Tk, D) -> (B, Hkv, Tk, D): sum over each group
+        return g.reshape(B, Hkv, group, Tk, D).sum(dim=2)
+
+    return dq.to(q.dtype), fold(dk).to(k.dtype), fold(dv).to(v.dtype)

@@ -1,0 +1,147 @@
+"""Training launcher (port of ``repro.launch.train``).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch phi4-mini-3.8b \\
+      --steps 4 --batch 8 --seq 1024 --n-micro 2
+
+builds the model on the card (``--device``, default ``cuda``; raises without
+one) with remat, the port's random init from ``--seed``, and trains it with
+AdamW on the deterministic synthetic stream (``data.SyntheticLM``), logging
+loss, gradient norm, learning rate, the step's time on the host's clock
+around a synchronise, and tokens per second.  Step times feed a
+``CCPScheduler`` as the reference's heartbeat telemetry does.
+``--smoke --device cpu`` trains the smoke config on the CPU.
+
+``--coded-dp`` runs the coded data-parallel step (R-of-(R+K) gradient
+aggregation) with R workers = the data size of ``--mesh``, in turn on the
+one device.  Not ported: ``--ckpt``/``--resume`` (checkpointing waits for
+slice C4 of the port) and a plain data- or model-parallel ``--mesh`` above 1
+(it waits for a second card); ``--devices``, the reference's XLA flag that
+forces host devices, has no counterpart and is ignored with a note.
+``REPRO_TRAIN_OVERRIDES`` (``key=int,...``) overrides config fields, as in
+the reference.
+"""
+
+import argparse
+import os
+import sys
+import time
+
+
+def _parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-friendly)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--n-micro", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--mesh", default="1,1", help="data,model axis sizes")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="the reference's forced XLA host devices: no counterpart here")
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--coded-dp", action="store_true",
+                    help="use the coded-DP (R-of-R+K) training step")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    return ap.parse_args(argv)
+
+
+def run(argv=None) -> dict:
+    """Train as ``main`` does; returns the final loss, the per-step
+    history (loss, grad_norm, lr, step ms, tokens/s and, of the first step,
+    each gradient leaf's sum of squares), the config and the device."""
+    args = _parse_args(argv)
+    if args.ckpt or args.resume:
+        raise NotImplementedError("--ckpt/--resume: checkpointing is not ported yet; it waits "
+                                  "for slice C4 of the port (ROADMAP queue 1)")
+    data_n, model_n = (int(x) for x in args.mesh.split(","))
+    if model_n > 1 or (data_n > 1 and not args.coded_dp):
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: a sharded mesh needs a second card (the multi-GPU slice of "
+            "the port); --coded-dp runs the data axis's workers in turn on one device")
+    if args.devices:
+        print(f"note: --devices {args.devices} forces XLA host devices in the reference; "
+              "the port has no counterpart and ignores it", file=sys.stderr)
+
+    import numpy as np
+    import torch
+
+    from repro_torch import _device
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import CCPScheduler
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import make_coded_train_step, make_train_step
+
+    dev = _device.resolve(args.device)
+    _device.full_fp32_matmuls(dev)
+    overrides = {}
+    for kv in filter(None, os.environ.get("REPRO_TRAIN_OVERRIDES", "").split(",")):
+        k, v = kv.split("=")
+        overrides[k] = int(v)
+    cfg = get_config(args.arch, smoke=args.smoke, **overrides)
+    model = build_model(cfg, remat=True)
+    params = model.init(args.seed, device=dev)
+    opt_cfg = adamw.AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
+                                total_steps=args.steps)
+    opt_state = adamw.init(params)
+    data = SyntheticLM(cfg.vocab, args.seq, args.batch, n_micro=args.n_micro, seed=args.seed)
+
+    sched = CCPScheduler(n_workers=data_n)
+    if args.coded_dp:
+        step_fn, code, (pats, ws) = make_coded_train_step(model, opt_cfg, data_n,
+                                                          seed=args.seed, device=dev)
+        w0 = ws[0]
+
+        def run_step(params, opt_state, batch):
+            # batch (n_micro, mb, T) -> the coded step's (R, mb', T)
+            tok = batch["tokens"].reshape(data_n, -1, batch["tokens"].shape[-1])
+            lab = batch["labels"].reshape(data_n, -1, batch["labels"].shape[-1])
+            return step_fn(params, opt_state, {"tokens": tok, "labels": lab}, w0)
+    else:
+        run_step = make_train_step(model, opt_cfg, args.n_micro, pre_shaped=True, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    history, loss = [], float("nan")
+    t_start = time.perf_counter()
+    for step in range(args.steps):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in data.batch(step).items()}
+        sync()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = run_step(params, opt_state, batch)
+        sync()
+        dt = time.perf_counter() - t0
+        loss = float(metrics["loss"])
+        sched.observe_step(np.full(data_n, dt))
+        rec = dict(step=step, loss=loss, grad_norm=float(metrics["grad_norm"]),
+                   lr=float(metrics["lr"]), ms=dt * 1e3,
+                   tokens_per_s=args.batch * args.seq / dt)
+        if step == 0:
+            rec["grad_leaf_sq"] = metrics["grad_leaf_sq"].cpu().numpy()
+        history.append(rec)
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(f"step {step:5d} loss {loss:.4f} gnorm {rec['grad_norm']:.3f} "
+                  f"lr {rec['lr']:.2e} {dt * 1e3:.0f}ms {rec['tokens_per_s']:.0f} tok/s",
+                  flush=True)
+    wall = time.perf_counter() - t_start
+    print(f"done: {args.steps} steps in {wall:.1f}s on {dev}, final loss {loss:.4f}")
+    return dict(loss=loss, history=history, cfg=cfg, device=dev, wall_s=wall,
+                sched_e_beta=sched.e_beta)
+
+
+def main(argv=None):
+    return run(argv)["loss"]
+
+
+if __name__ == "__main__":
+    main()

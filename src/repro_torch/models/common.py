@@ -1,5 +1,5 @@
-"""Model substrate: parameter init, norms, activations, RoPE (port of
-``repro.models.common``).
+"""Model substrate: parameter init and the param tree's walkers, norms,
+activations, RoPE (port of ``repro.models.common``).
 
 Params are nested dicts of tensors with the reference's layouts.  The
 reference's init draws from ``jax.random`` (threefry), which torch cannot
@@ -15,10 +15,32 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+PyTree = Any
+
+
+def tree_leaves(tree: PyTree) -> List[torch.Tensor]:
+    """The tensors of a tree of dicts and lists, in order (dict keys as
+    inserted)."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of
+    ``rest``), keeping its structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 @dataclasses.dataclass

@@ -36,9 +36,12 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, *, use_kernel: Optional[bool] = None,
-                ring_local: bool = False) -> Model:
+                ring_local: bool = False, remat: bool = False,
+                remat_policy: str = "full") -> Model:
     """``use_kernel`` is the reference's ``use_pallas``: None takes the
-    tensors' device (K4 on the card, the plain version on the CPU)."""
+    tensors' device (K4 on the card, the plain version on the CPU).
+    ``remat``/``remat_policy`` apply to ``loss_fn``, as in the reference
+    (``transformer.decoder_stack``)."""
     tf_mod._check_ported(cfg)
     cdt = getattr(torch, cfg.compute_dtype)
 
@@ -57,7 +60,8 @@ def build_model(cfg: ModelConfig, *, use_kernel: Optional[bool] = None,
     def loss_fn(params, batch):
         """batch: {"tokens": (B,T), "labels": (B,T), optional "embeds"}."""
         logits, _, aux = tf_mod.lm_forward(params, batch["tokens"], cfg,
-                                           embeds=batch.get("embeds"), use_kernel=use_kernel)
+                                           embeds=batch.get("embeds"), use_kernel=use_kernel,
+                                           remat=remat, remat_policy=remat_policy)
         labels = batch["labels"]
         if batch.get("embeds") is not None:
             # loss only over the token suffix (stub prefix carries no labels)

@@ -10,13 +10,23 @@ reference's tree into this form.  Caches are a list of per-layer dicts.
 
 This slice ports the attention blocks (``attn``, ``attn_local``,
 ``attn_global``) with a dense MLP; the recurrent mixers and MoE raise.
+
+``remat`` (training, no cache) recomputes each layer in the backward
+(``torch.utils.checkpoint``, non-reentrant): ``remat_policy="full"`` keeps
+only the layer's input, ``"dots"`` also keeps the matrix products' outputs
+(selective checkpointing, the counterpart of
+``jax.checkpoint_policies.checkpoint_dots``).  The reference checkpoints each
+group of ``block_pattern``; the port each layer.  Either way every
+attention's forward runs twice in a training step.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from . import attention as attn_mod
 from . import mlp as mlp_mod
@@ -123,6 +133,30 @@ def init_decoder(pb: ParamBuilder, cfg: ModelConfig) -> List[Dict[str, Any]]:
     return [init_block(pb, cfg, kind) for kind in block_kinds(cfg)]
 
 
+# The matrix products whose outputs remat_policy="dots" keeps.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_block(params, x, cfg, kind, use_kernel, policy):
+    """``apply_block`` without a cache under ``torch.utils.checkpoint``."""
+    def run(x):
+        y, _, a = apply_block(params, x, cfg, kind, use_kernel=use_kernel)
+        return y, a
+
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                             _save_dots)
+    y, a = ckpt.checkpoint(run, x, use_reentrant=False, **kw)
+    return y, None, a
+
+
 def decoder_stack(
     blocks: List[Dict[str, Any]],
     x: torch.Tensor,
@@ -130,13 +164,21 @@ def decoder_stack(
     caches: Optional[List[Dict[str, Any]]] = None,
     *,
     use_kernel: Optional[bool] = None,
+    remat: bool = False,
+    remat_policy: str = "full",
 ) -> Tuple[torch.Tensor, Optional[List[Dict[str, Any]]], torch.Tensor]:
-    """Apply every layer in order; ``caches`` is a list of per-layer caches."""
+    """Apply every layer in order; ``caches`` is a list of per-layer caches.
+    ``remat`` (no caches): recompute each layer in the backward, keeping
+    its input (``remat_policy="full"``) or also its matrix products
+    (``"dots"``; any other value is ``"full"``, as in the reference)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = None if caches is None else []
     for i, kind in enumerate(block_kinds(cfg)):
         c = None if caches is None else caches[i]
-        x, c, a = apply_block(blocks[i], x, cfg, kind, c, use_kernel=use_kernel)
+        if remat and caches is None:
+            x, c, a = _remat_block(blocks[i], x, cfg, kind, use_kernel, remat_policy)
+        else:
+            x, c, a = apply_block(blocks[i], x, cfg, kind, c, use_kernel=use_kernel)
         aux = aux + a
         if new_caches is not None:
             new_caches.append(c)
@@ -164,6 +206,8 @@ def lm_forward(
     embeds: Optional[torch.Tensor] = None,
     caches: Optional[List[Dict[str, Any]]] = None,
     use_kernel: Optional[bool] = None,
+    remat: bool = False,
+    remat_policy: str = "full",
     last_only: bool = False,
 ) -> Tuple[torch.Tensor, Optional[List[Dict[str, Any]]], torch.Tensor]:
     """tokens (B, T) and/or precomputed ``embeds`` (B, P, D) prefix (vlm/audio
@@ -186,7 +230,8 @@ def lm_forward(
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt)
-    x, caches, aux = decoder_stack(params["blocks"], x, cfg, caches, use_kernel=use_kernel)
+    x, caches, aux = decoder_stack(params["blocks"], x, cfg, caches, use_kernel=use_kernel,
+                                   remat=remat, remat_policy=remat_policy)
     x = _norm(cfg, params["final_norm"], x)
     if last_only:
         x = x[:, -1:]

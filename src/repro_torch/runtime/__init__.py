@@ -1,1 +1,1 @@
-"""Serving runtime of the port (training comes with a later slice)."""
+"""Runtime of the port: serving (`serve_loop`) and training (`train_loop`)."""

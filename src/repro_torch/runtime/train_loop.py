@@ -1,0 +1,215 @@
+"""Training step factories: the microbatched step and the coded-DP step
+(port of ``repro.runtime.train_loop``).
+
+``make_train_step`` builds the production step: gradient accumulation over
+microbatches (an fp32 accumulator), remat per layer when the model was
+built with it, AdamW update.
+
+``make_coded_train_step`` is the paper's contribution wired into DP: every
+worker computes its own microbatch gradient plus (round-robin) one parity
+gradient — the gradient of a sparse sum of neighbour microbatches — and
+aggregation is a *weighted* sum whose weights (a tiny input) realize the
+R-of-(R+K) decode for the current survivor set.  On one card the R workers
+run in turn and the reference's weighted ``psum`` over the mesh's data axis
+becomes the same weighted sum in worker order; the ``shard_map`` form
+across cards waits for the multi-GPU slice.
+
+Gradients come from ``torch.autograd.grad`` on detached aliases of the
+parameter leaves, so the caller's tensors need not require grad and carry
+no ``.grad``.  The optimizer updates in place (``optim.adamw.apply``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import _device
+from ..core import gradient_coding
+from ..models.common import tree_leaves, tree_map
+from ..models.model import Model
+from ..optim import adamw
+
+PyTree = Any
+
+
+def _as_tensors(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items() if v is not None}
+
+
+def _reshape_micro(batch: Dict[str, torch.Tensor], n_micro: int):
+    def r(x):
+        b = x.shape[0]
+        if b % n_micro:
+            raise ValueError(f"batch {b} is not a multiple of n_micro {n_micro}")
+        return x.reshape(n_micro, b // n_micro, *x.shape[1:])
+
+    return {k: r(v) for k, v in batch.items()}
+
+
+def _device_of(params: PyTree) -> torch.device:
+    return tree_leaves(params)[0].device
+
+
+def _on(params: PyTree, dev: torch.device) -> torch.device:
+    """The step's device, which the parameters must be on."""
+    have = _device_of(params)
+    if have.type != dev.type or (dev.index is not None and have != dev):
+        raise ValueError(f"the parameters are on {have}, the step runs on {dev}")
+    return have
+
+
+def value_and_grad(loss_fn: Callable, params: PyTree, batch) -> Tuple[torch.Tensor, PyTree]:
+    """``(loss, grads)`` of ``loss_fn(params, batch)``: the loss detached,
+    the gradients a tree like ``params``."""
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        loss = loss_fn(live, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+    it = iter(grads)
+    return loss.detach(), tree_map(lambda _: next(it), params)
+
+
+def accumulate_grads(model: Model, params: PyTree,
+                     micro: Dict[str, torch.Tensor]) -> Tuple[PyTree, torch.Tensor]:
+    """The mean gradient and loss over the leading microbatch axis of
+    ``micro`` (n_micro, mb, ...): each microbatch's gradient summed in fp32
+    (in order, from zero), then divided, as the reference's scan does."""
+    n = next(iter(micro.values())).shape[0]
+    gsum, lsum = None, torch.zeros((), dtype=torch.float32, device=_device_of(params))
+    for i in range(n):
+        loss, grads = value_and_grad(model.loss_fn, params, {k: v[i] for k, v in micro.items()})
+        if gsum is None:
+            gsum = tree_map(lambda g: g.float(), grads)
+        else:
+            tree_map(lambda a, g: a.add_(g.float()), gsum, grads)
+        lsum = lsum + loss
+        del grads
+    return tree_map(lambda g: g.div_(n), gsum), lsum / n
+
+
+def make_train_step(
+    model: Model,
+    opt_cfg: adamw.AdamWConfig,
+    n_microbatches: int = 1,
+    pre_shaped: bool = False,
+    device=None,
+) -> Callable:
+    """(params, opt_state, batch) -> (params', opt_state', metrics), the
+    parameters and moments updated in place.
+
+    ``pre_shaped``: batch arrays already carry the leading (n_micro, mb, ...)
+    layout (the data pipeline produces this).  ``device`` (default ``cuda``;
+    raises without a card unless ``"cpu"``) is where the step runs: the
+    parameters must be there, and the batch arrays (numpy or tensors) go
+    there.  ``metrics``: ``loss`` (a scalar tensor on that device) and those
+    of ``adamw.apply``.
+    """
+    dev = _device.resolve(device)
+
+    def train_step(params, opt_state, batch):
+        b = _as_tensors(batch, _on(params, dev))
+        mb = b if pre_shaped else _reshape_micro(b, n_microbatches)
+        grads, loss = accumulate_grads(model, params, mb)
+        params, opt_state, metrics = adamw.apply(opt_cfg, params, grads, opt_state)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_eval_step(model: Model, device=None) -> Callable:
+    dev = _device.resolve(device)
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        return model.loss_fn(params, _as_tensors(batch, _on(params, dev)))
+
+    return eval_step
+
+
+# ---------------------------------------------------------------------------
+# Coded data parallelism (the paper's technique in the training loop)
+# ---------------------------------------------------------------------------
+
+def make_coded_train_step(
+    model: Model,
+    opt_cfg: adamw.AdamWConfig,
+    n_workers: int,
+    n_parity: Optional[int] = None,
+    seed: int = 0,
+    device=None,
+):
+    """Coded-DP training step over ``n_workers`` (R) workers, run in turn
+    on ``device`` (as in :func:`make_train_step`).
+
+    Returns (train_step, code, weight_table) where
+      train_step(params, opt_state, batch, weights) and
+      batch["tokens"]: (R, mb, T), worker w's microbatch at [w],
+      weights: (R+K,) decode weights (``weight_table``'s rows; pattern 0 is
+      no straggler).  Worker w computes its own gradient and, if it holds
+      one, parity k's (k % R == w): the gradient of sum_j c_j loss(mb_j)
+      over the parity's neighbours; the update uses
+      sum_w (weights[w] g_w + weights[R + k_w] g_parity_w) / R.
+    ``train_step.grads(params, batch, weights)`` returns that gradient
+    (before the division by R) and the weighted loss sum, without a step.
+    """
+    dev = _device.resolve(device)
+    R = int(n_workers)
+    K = n_parity if n_parity is not None else max(1, R // 4)
+    code = gradient_coding.make_gradient_code(R, K, seed=seed)
+    # worker w's parity: the first k with k % R == w, its coded row and the
+    # coefficient of each neighbour microbatch
+    parity = [None] * R
+    for k, nbrs in enumerate(gradient_coding.parity_assignments(code)):
+        w = k % R
+        if parity[w] is None:
+            row = code.R + k
+            cmap = {int(s): float(c) for s, c in
+                    zip(code.idx[row][code.mask[row]], code.coef[row][code.mask[row]])}
+            parity[w] = (row, [(int(s), cmap[int(s)]) for s in nbrs])
+
+    def coded_grads(params, batch_all, weights):
+        b = _as_tensors(batch_all, _on(params, dev))
+        wts = np.asarray(torch.as_tensor(weights).cpu(), dtype=np.float32)
+        gsum, loss = None, torch.zeros((), dtype=torch.float32, device=_device_of(params))
+        for w in range(R):
+            own = {k: v[w] for k, v in b.items()}
+            l_own, g_own = value_and_grad(model.loss_fn, params, own)
+            w_own, w_par = float(wts[w]), 0.0
+            if parity[w] is not None:
+                row, nbrs = parity[w]
+                w_par = float(wts[row])
+
+                def parity_loss(p, _):
+                    return sum(c * model.loss_fn(p, {k: v[s] for k, v in b.items()})
+                               for s, c in nbrs)
+
+                _, g_par = value_and_grad(parity_loss, params, None)
+                combined = tree_map(
+                    lambda a, p: w_own * a.float() + w_par * p.float(), g_own, g_par)
+                del g_par
+            else:
+                combined = tree_map(lambda a: w_own * a.float(), g_own)
+            del g_own
+            if gsum is None:
+                gsum = combined
+            else:
+                tree_map(lambda a, g: a.add_(g), gsum, combined)
+            del combined
+            loss = loss + l_own * w_own
+        return gsum, loss
+
+    def train_step(params, opt_state, batch_all, weights):
+        gsum, loss = coded_grads(params, batch_all, weights)
+        grads = tree_map(lambda g: g.div_(R), gsum)
+        params, opt_state, metrics = adamw.apply(opt_cfg, params, grads, opt_state)
+        metrics["loss"] = loss / R
+        return params, opt_state, metrics
+
+    train_step.grads = coded_grads
+
+    pats, ws = gradient_coding.weight_table(code, max_stragglers=max(1, K // 2), seed=seed)
+    return train_step, code, (pats, ws)

@@ -927,3 +927,134 @@ def test_transport_and_fleet_figures_smoke_on_the_card(card, tmp_path):
     for name in out:
         doc = json.loads((tmp_path / f"{name}.json").read_text())
         assert doc["meta"]["device"]["type"] == "cuda" and doc["data"]
+
+
+# --- LM training: K4's backward, the train step, the attention gradients --------
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention.autograd import kernel_forward  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,  # noqa: E402
+                                                     attention_fwd_ref)
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.runtime import train_loop  # noqa: E402
+
+# chip_smoke.py's [k4-bwd-check] cases: (B, Hq, Hkv, Tq, Tk, D, causal,
+# window, softcap, q_offset, tk_valid), and its limits for the gradients,
+# |d - ref| <= atol max|ref| + rtol |ref|: float32 the forward's; bfloat16
+# rtol 2e-2 (2.5 ulp of the one rounding each side makes) and atol 1e-3,
+# tighter than the forward's 0.16, which would pass late keys' dK and dV
+# written as zeros under a causal mask.
+FA_BWD_TOL = {torch.float32: FA_TOL[torch.float32], torch.bfloat16: (2e-2, 1e-3)}
+FA_BWD_CASES = [
+    (1, 2, 2, 64, 64, 64, True, None, None, 0, None),
+    (2, 6, 2, 100, 100, 128, True, None, None, 0, None),
+    (1, 8, 2, 37, 53, 128, False, None, None, 0, None),
+    (1, 4, 2, 96, 96, 64, True, 16, None, 0, None),
+    (1, 4, 1, 80, 80, 64, True, None, 30.0, 0, None),
+    (2, 4, 2, 45, 45, 24, True, 8, 50.0, 0, None),
+    (2, 6, 2, 23, 64, 24, True, None, None, 10, 33),
+    (1, 4, 2, 16, 32, 64, True, None, None, -3, None),
+    (1, 4, 2, 5, 40, 8, True, None, None, 3, 0),
+    (1, 4, 4, 70, 200, 256, True, 32, None, 5, 75),
+    (1, 24, 8, 256, 256, 128, True, None, None, 0, None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal,window,softcap,q_offset,tk_valid",
+                         FA_BWD_CASES)
+def test_flash_attention_backward_kernel_matches_plain_version(
+        card, B, Hq, Hkv, Tq, Tk, D, causal, window, softcap, q_offset, tk_valid, dtype):
+    """The backward kernel against ``attention_bwd_ref`` over the valid
+    prefix (what lies beyond it is NaN and gets zero gradients), each
+    gradient within FA_BWD_TOL; the forward's lse against the plain one
+    within FA_TOL; two runs bitwise equal."""
+    rng = np.random.default_rng(Tq * 1000 + Tk + D)
+    q, k, v, do = (torch.as_tensor(rng.standard_normal(s) * 0.5, dtype=dtype, device=card)
+                   for s in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D), (B, Hq, Tq, D)))
+    valid = Tk if tk_valid is None else tk_valid
+    k[:, :, valid:], v[:, :, valid:] = torch.nan, torch.nan
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    out, lse = kernel_forward(q, k, v, kv_len=tk_valid, **kw)
+    before = fa_kernel.flash_attention_bwd_cuda.launches
+    grads = fa_kernel.flash_attention_bwd_cuda(q, k, v, out, do, lse, tk_valid=tk_valid, **kw)
+    again = fa_kernel.flash_attention_bwd_cuda(q, k, v, out, do, lse, tk_valid=tk_valid, **kw)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention_bwd_cuda.launches == before + 2 * fa_kernel.BWD_LAUNCHES
+    o_ref, lse_ref = attention_fwd_ref(q, k[:, :, :valid], v[:, :, :valid], **kw)
+    ref = attention_bwd_ref(q, k[:, :, :valid], v[:, :, :valid], o_ref, do, lse_ref, **kw)
+    rtol, atol = FA_TOL[dtype]
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(lse_ref))
+    fin = torch.isfinite(lse_ref)
+    torch.testing.assert_close(lse[fin], lse_ref[fin], rtol=rtol, atol=atol)
+    pad = torch.zeros((B, Hkv, Tk - valid, D), dtype=dtype, device=card)
+    g_rtol, g_atol = FA_BWD_TOL[dtype]
+    for g, r in zip(grads, (ref[0], torch.cat([ref[1], pad], 2), torch.cat([ref[2], pad], 2))):
+        assert g.shape == r.shape and g.dtype == dtype and bool(torch.isfinite(g).all())
+        scale = float(r.float().abs().max())
+        assert bool(((g.float() - r.float()).abs()
+                     <= g_atol * scale + g_rtol * r.float().abs()).all())
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.gpu
+def test_flash_attention_on_the_card_gives_q_k_v_their_gradients(card):
+    """The fault repaired: K4 on CUDA tensors that require grad, through the
+    autograd function, and the gradients of the plain route."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    q, k, v, do = (torch.randn(s, generator=gen, device=card)
+                   for s in ((2, 6, 40, 32), (2, 2, 40, 32), (2, 2, 40, 32), (2, 6, 40, 32)))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention(*leaves, window=16, softcap=20.0).backward(do)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    attention_ref(*plain, window=16, softcap=20.0).backward(do)
+    for a, b in zip(leaves, plain):
+        assert a.grad is not None and bool(a.grad.abs().max() > 0)
+        torch.testing.assert_close(a.grad, b.grad, rtol=2e-5, atol=1.6e-4)
+
+
+@pytest.mark.gpu
+def test_every_attention_weight_gets_a_gradient_on_the_card(card):
+    cfg = get_config("phi4-mini-3.8b", smoke=True)
+    model = build_model(cfg, remat=True)
+    params = model.init(0, device=card)
+    tok = torch.randint(0, cfg.vocab, (2, 24), device=card)
+    _, grads = train_loop.value_and_grad(model.loss_fn, params, {"tokens": tok, "labels": tok})
+    for block in grads["blocks"]:
+        for name in ("wq", "wk", "wv", "wo"):
+            g = block["mixer"][name]
+            assert bool(torch.isfinite(g).all()) and bool((g != 0).any()), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "gemma2-27b"])
+def test_train_step_on_the_card_matches_the_cpu(card, arch):
+    """One smoke train step (2 microbatches) with the same weights on the
+    card and on the CPU: the loss within 1e-5 relative, each gradient leaf
+    within 1e-4 of its max |.|, and the step's metrics."""
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg, remat=True)
+    on_cpu = model.init(0, device="cpu")
+    on_card = tree_map(lambda p: p.to(card), on_cpu)
+    tok = np.random.default_rng(0).integers(0, cfg.vocab, size=(2, 4, 16)).astype(np.int32)
+    runs = []
+    for params, dev in ((on_card, card), (on_cpu, torch.device("cpu"))):
+        micro = {"tokens": torch.as_tensor(tok, device=dev),
+                 "labels": torch.as_tensor(tok[..., ::-1].copy(), device=dev)}
+        runs.append(train_loop.accumulate_grads(model, params, micro))
+    (g_card, l_card), (g_cpu, l_cpu) = runs
+    assert abs(float(l_card) - float(l_cpu)) <= 1e-5 * abs(float(l_cpu))
+    for a, b in zip(tree_leaves(g_card), tree_leaves(g_cpu)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=4)
+    metrics = []
+    for params, dev in ((on_card, card), (on_cpu, "cpu")):
+        step = train_loop.make_train_step(model, opt_cfg, 2, pre_shaped=True, device=dev)
+        _, state, m = step(params, adamw.init(params), {"tokens": tok, "labels": tok})
+        metrics.append(m)
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(metrics[0][key]), float(metrics[1][key]), rtol=1e-5)

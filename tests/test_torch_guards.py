@@ -16,7 +16,10 @@ from repro_torch.configs import get_config
 from repro_torch.core import baselines, engine, simulator
 from repro_torch.figures import run as figures_run
 from repro_torch.launch import serve as serve_launch
+from repro_torch.launch import train as train_launch
 from repro_torch.models import build_model
+from repro_torch.optim import adamw
+from repro_torch.runtime import train_loop
 from repro_torch.runtime.serve_loop import ServeEngine
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -58,6 +61,21 @@ out = serve.main(["--arch", "phi4-mini-3.8b", "--smoke", "--device", "cpu", "--r
                   "--batch", "2", "--prompt-len", "6", "--new-tokens", "3", "--max-len", "16",
                   "--replicas", "2"])
 assert len(out) == 3 and all(r.shape == (2, 3) for r in out), out
+import numpy as np
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+from repro_torch.optim import adamw
+from repro_torch.runtime.train_loop import make_coded_train_step, make_train_step
+cfg = get_config("mistral-nemo-12b", smoke=True)
+model = build_model(cfg, remat=True)
+params = model.init(0, device="cpu")
+tok = np.random.default_rng(0).integers(0, cfg.vocab, size=(2, 2, 8)).astype(np.int32)
+step = make_train_step(model, adamw.AdamWConfig(), 2, pre_shaped=True, device="cpu")
+params, state, m = step(params, adamw.init(params), {"tokens": tok, "labels": tok})
+assert state.step == 1 and float(m["loss"]) > 0, m
+step, code, (pats, ws) = make_coded_train_step(model, adamw.AdamWConfig(), 2, device="cpu")
+params, state, m = step(params, adamw.init(params), {"tokens": tok, "labels": tok}, ws[0])
+assert state.step == 1 and float(m["loss"]) > 0, m
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
 print("OK")
 """
@@ -75,6 +93,10 @@ def test_chip_smoke_and_port_sources_name_no_jax():
     """No import of jax or of the reference package in the port's sources
     or in chip_smoke.py."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    names = {f.relative_to(ROOT / "src" / "repro_torch").as_posix() for f in files[:-1]}
+    assert {"optim/adamw.py", "data/pipeline.py", "runtime/train_loop.py",
+            "core/gradient_coding.py", "launch/train.py",
+            "kernels/flash_attention/autograd.py"} <= names
     for f in files:
         for line in f.read_text().splitlines():
             words = line.split()
@@ -122,12 +144,22 @@ def test_default_device_is_cuda_and_entry_points_refuse_without_a_card():
         interop.dynamics_from_numpy({"drop": np.zeros((1, 4, 2), bool)})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_launch.main(["--arch", "phi4-mini-3.8b", "--smoke"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_launch.main(["--arch", "mistral-nemo-12b", "--smoke", "--steps", "1"])
     model = build_model(get_config("phi4-mini-3.8b", smoke=True))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.init(0)
     params = model.init(0, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(model, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_loop.make_train_step(model, adamw.AdamWConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_loop.make_coded_train_step(model, adamw.AdamWConfig(), 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_loop.make_eval_step(model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interop.adamw_state_from_numpy(adamw.init({}))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         interop.lm_params_from_numpy(model.cfg, {"blocks": {}})
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -1,0 +1,46 @@
+"""The port's training launcher (``python -m repro_torch.launch.train``) on
+the CPU: smoke steps, the coded-DP path, the config overrides, and the
+options that wait for other slices refused."""
+
+import numpy as np
+import pytest
+
+from repro_torch.launch import train
+
+SMOKE = ["--arch", "mistral-nemo-12b", "--smoke", "--device", "cpu", "--seq", "16",
+         "--batch", "4"]
+
+
+def test_three_smoke_steps_on_the_cpu(capsys):
+    res = train.run(SMOKE + ["--steps", "3", "--n-micro", "2", "--log-every", "1"])
+    hist = res["history"]
+    assert [h["step"] for h in hist] == [0, 1, 2] and res["device"].type == "cpu"
+    assert all(np.isfinite(h["loss"]) and h["ms"] > 0 and h["tokens_per_s"] > 0 for h in hist)
+    sq = hist[0]["grad_leaf_sq"]
+    assert np.all(np.isfinite(sq)) and np.all(sq > 0)
+    assert res["loss"] == hist[-1]["loss"]
+    assert res["sched_e_beta"].shape == (1,)
+    out = capsys.readouterr().out
+    assert out.count("step ") == 3 and "done: 3 steps" in out
+    assert train.main(SMOKE + ["--steps", "1"]) == pytest.approx(hist[0]["loss"])
+
+
+def test_coded_dp_runs_the_mesh_data_axis_as_workers(capsys):
+    res = train.run(SMOKE + ["--steps", "2", "--coded-dp", "--mesh", "4,1", "--devices", "4"])
+    assert len(res["history"]) == 2 and np.isfinite(res["loss"])
+    assert res["sched_e_beta"].shape == (4,)
+    assert "no counterpart" in capsys.readouterr().err
+
+
+def test_overrides_from_the_environment(monkeypatch):
+    monkeypatch.setenv("REPRO_TRAIN_OVERRIDES", "n_layers=1,d_ff=64")
+    res = train.run(SMOKE + ["--steps", "1"])
+    assert (res["cfg"].n_layers, res["cfg"].d_ff) == (1, 64)
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["--ckpt", "ck"], "slice C4"), (["--resume"], "slice C4"),
+    (["--mesh", "2,1"], "second card"), (["--mesh", "1,2", "--coded-dp"], "second card")])
+def test_what_waits_for_other_slices_is_refused(extra, match):
+    with pytest.raises(NotImplementedError, match=match):
+        train.run(SMOKE + ["--steps", "1"] + extra)
