@@ -161,10 +161,10 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def tensor_core_sass(lib, kernel: str) -> None:
+def tensor_core_sass(lib, *kernels: str) -> None:
     """Count the tensor-core instructions (HMMA, HGMMA) that ``cuobjdump
-    -sass`` shows in each function of the built library; fail unless
-    ``kernel`` has some."""
+    -sass`` shows in each function of the built library; fail unless each
+    of ``kernels`` has some."""
     import os
     import shutil
     tool = shutil.which("cuobjdump") or str(
@@ -180,8 +180,9 @@ def tensor_core_sass(lib, kernel: str) -> None:
             counts[fn] += 1
     for fn, n in counts.items():
         phase("sass", source=Path(lib).name, function=fn[:96], tensor_core_instructions=n)
-    if not any(n > 0 for fn, n in counts.items() if kernel in fn):
-        raise AssertionError(f"{kernel} has no tensor-core instruction in its SASS")
+    for kernel in kernels:
+        if not any(n > 0 for fn, n in counts.items() if kernel in fn):
+            raise AssertionError(f"{kernel} has no tensor-core instruction in its SASS")
 
 
 def check_kernel_against_plain(dev) -> None:
@@ -1884,10 +1885,13 @@ def serve_card_vs_cpu(dev) -> None:
 
 # K4's backward against its plain version: (name, B, Hq, Hkv, Tq, Tk, D,
 # causal, window, softcap, q_offset, tk_valid).  GQA groups 1, 3 and 4,
-# ragged rows, windows, softcaps, a cache buffer read up to tk_valid (what
-# lies beyond is NaN and must get zero gradients), rows with no valid key
-# (a negative offset leaves the first rows without one; tk_valid 0 all),
-# head dims 24, 64, 128 and 256, and phi4-mini's heads at 256 tokens.
+# ragged rows (300 packed rows against the tensor-core instance's 128),
+# windows, softcaps, a cache buffer read up to tk_valid (what lies beyond is
+# NaN and must get zero gradients; 101 lies inside a 32-key tile), rows
+# with no valid key (a negative offset leaves the first rows without one;
+# tk_valid 0 all), head dims 24, 64, 128 and 256, and phi4-mini's heads at
+# 256 tokens.  In float32 every case with D <= 128 but the unaligned D 30
+# runs the tensor-core instance; D 256, D 30 and bfloat16 the CUDA cores.
 FA_BWD_CASES = [
     ("mha-d64", 1, 2, 2, 64, 64, 64, True, None, None, 0, None),
     ("gqa3-ragged-d128", 2, 6, 2, 100, 100, 128, True, None, None, 0, None),
@@ -1900,6 +1904,8 @@ FA_BWD_CASES = [
     ("no-valid-key", 1, 4, 2, 5, 40, 8, True, None, None, 3, 0),
     ("head256-window", 1, 4, 4, 70, 200, 256, True, 32, None, 5, 75),
     ("phi4-heads", 1, 24, 8, 256, 256, 128, True, None, None, 0, None),
+    ("offset-buffer-d128", 2, 6, 2, 70, 160, 128, True, None, None, 40, 101),
+    ("unaligned-d30", 1, 4, 2, 50, 50, 30, True, None, None, 0, None),
 ]
 # K4's backward at the training shape (phi4-mini's heads, 1024 tokens, a
 # microbatch of 4 sequences, causal, f32).
@@ -1938,15 +1944,19 @@ def _fa_bwd_inputs(dev, gen, B, Hq, Hkv, Tq, Tk, D, dtype, tk_valid):
 def check_flash_attention_bwd(dev) -> None:
     """K4's forward with its log-sum-exp, and its backward kernel, against
     the plain versions (``ref.attention_lse_ref``, ``attention_fwd_ref``,
-    ``attention_bwd_ref`` over the valid prefix) on the card, f32 and bf16:
-    each gradient within FA_BWD_TOL for the type (|d - ref| <= atol
-    max|ref| + rtol |ref|; the share of that limit the worst element uses is
-    printed), the log-sum-exp within the forward's FA_TOL, zero gradients at
-    keys beyond tk_valid, and two runs of the backward bitwise equal."""
+    ``attention_bwd_ref`` over the valid prefix) on the card, f32 and bf16,
+    with the instance that ran (``bwd_plan``): each gradient within
+    FA_BWD_TOL for the type (|d - ref| <= atol max|ref| + rtol |ref|; the
+    share of that limit the worst element uses is printed), the tensor-core
+    instance's also against the plain model of its arithmetic
+    (``attention_bwd_3xtf32``), the log-sum-exp within the forward's
+    FA_TOL, zero gradients at keys beyond tk_valid, and two runs of the
+    backward bitwise equal."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as k4
     from repro_torch.kernels.flash_attention.autograd import kernel_forward
-    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_fwd_ref
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_3xtf32,
+                                                         attention_bwd_ref, attention_fwd_ref)
 
     gen = torch.Generator(device=dev).manual_seed(7)
     for dt in (torch.float32, torch.bfloat16):
@@ -1974,40 +1984,55 @@ def check_flash_attention_bwd(dev) -> None:
             lse_err = float((fin_lse - fin_ref).abs().max())
             lse_ok = torch.equal(torch.isinf(lse), torch.isinf(lse_ref)) and bool(
                 torch.allclose(fin_lse, fin_ref, rtol=rtol, atol=atol))
-            errs, share, ok = [], 0.0, lse_ok
-            for g, r in zip(grads, ref):
+            plan = k4.bwd_plan(D, dt == torch.float32 and D % 4 == 0)
+            model = (attention_bwd_3xtf32(q, k, v, out, do, lse, kv_len=tkv, **kw)
+                     if plan.wgmma else None)
+
+            def share_of(g, r):  # the worst element's share of FA_BWD_TOL's limit
                 diff, r = (g.float() - r.float()).abs(), r.float()
                 limit = g_atol * float(r.abs().max()) + g_rtol * r.abs()
-                errs.append(float(diff.max()))
-                share = max(share, float(torch.where(diff > 0, diff / limit, 0.0).max()))
-                ok = ok and bool(torch.isfinite(g).all()) and bool((diff <= limit).all())
+                return float(diff.max()), float(torch.where(diff > 0, diff / limit, 0.0).max())
+
+            errs, share, model_share, ok = [], 0.0, 0.0, lse_ok
+            for i, (g, r) in enumerate(zip(grads, ref)):
+                err, sh = share_of(g, r)
+                errs.append(err)
+                share = max(share, sh)
+                ok = ok and bool(torch.isfinite(g).all()) and sh <= 1.0
+                if model is not None:
+                    model_share = max(model_share, share_of(g, model[i])[1])
+            ok = ok and model_share <= 1.0
+            zeros = all(bool((g[:, :, valid:] == 0).all()) for g in grads[1:])
             bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
             phase("k4-bwd-check", case=f"{name}-{tag}", shape=f"B{B}H{Hq}/{Hkv}Tq{Tq}Tk{Tk}D{D}",
-                  q_offset=off, tk_valid=valid, lse_err=f"{lse_err:.3e}",
+                  instance="wgmma" if plan.wgmma else "cuda-cores", q_offset=off,
+                  tk_valid=valid, lse_err=f"{lse_err:.3e}",
                   dq_err=f"{errs[0]:.3e}", dk_err=f"{errs[1]:.3e}", dv_err=f"{errs[2]:.3e}",
                   grad_rtol=g_rtol, grad_atol=g_atol, share_of_limit=f"{share:.3f}",
-                  bitwise_repeat=bitwise)
-            if not ok:
+                  model_share_of_limit=f"{model_share:.3f}" if plan.wgmma else "n/a",
+                  zeros_beyond_tk_valid=zeros, bitwise_repeat=bitwise)
+            if not ok or not zeros:
                 raise AssertionError(f"K4's backward disagrees with its plain version: {name} "
                                      f"{tag}")
             if not bitwise:
                 raise AssertionError(f"K4's backward is not bitwise repeatable: {name} {tag}")
-            del q, k, v, do, out, lse, grads, again, ref
+            del q, k, v, do, out, lse, grads, again, ref, model
     torch.cuda.empty_cache()
 
 
 def flash_attention_bwd_at_train_shape(dev) -> dict:
     """K4's backward at the training shape (B 4, 24/8 heads, 1024 tokens, D
-    128, causal, f32): the two launches' device time by the profiler and by
-    CUDA events, the plain version's time, the library yardstick (the
-    backward of ``scaled_dot_product_attention(..., is_causal=True,
-    enable_gqa=True)`` in fp32, timed only; the port never calls it) and the
-    bounds: 10 B Hq pairs D FLOP as three TF32 products on the tensor cores
-    (the least time fp32-accurate products take on the card, as for K1 and
-    K4's forward) and, beside it, over the CUDA cores' fp32 rate (the units
-    the kernel computes on); the bytes of q, k, v, o, dO, lse in and dq, dk,
-    dv out.
-    Returns the numbers for the kernels line."""
+    128, causal, f32), which must run the tensor-core instance: the two
+    launches' device time by the profiler (by kernel name) and by CUDA
+    events, the plain version's time, the library yardstick (the backward
+    of ``scaled_dot_product_attention(..., is_causal=True,
+    enable_gqa=True)`` in fp32, timed only; the port never calls it) and
+    the bounds: 10 B Hq pairs D FLOP as three TF32 products on the tensor
+    cores (the least time fp32-accurate products take on the card, as for
+    K1 and K4's forward), beside it the two-launch design's own floor (7 of
+    those 5 products a pair: 7/5 of the bound) and the bound over the CUDA
+    cores' fp32 rate; the bytes of q, k, v, o, dO, lse in and dq, dk, dv
+    out.  Returns the numbers for the kernels line."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as k4
@@ -2036,8 +2061,13 @@ def flash_attention_bwd_at_train_shape(dev) -> dict:
     if not ok:
         raise AssertionError(f"K4's backward at the training shape: max|err| {err:.3e}")
     del grads, ref
-    steps = kernel_device_ms(bwd, 20, dict(dq="attention_bwd_dq_kernel",
-                                           dkdv="attention_bwd_dkdv_kernel"))
+    plan = k4.bwd_plan(D, True)
+    if not plan.wgmma:
+        raise AssertionError("the training shape's backward is not on the tensor cores")
+    # The tensor-core instance's two kernels by name: the profiler raises if
+    # either is missing, and anything else the backward launched is "other".
+    steps = kernel_device_ms(bwd, 20, dict(dq="attention_bwd_dq_wgmma_kernel",
+                                           dkdv="attention_bwd_dkdv_wgmma_kernel"))
     if steps["other"] > 0:
         raise AssertionError("the backward launched kernels besides its two")
     ms = steps["dq"] + steps["dkdv"]
@@ -2050,17 +2080,19 @@ def flash_attention_bwd_at_train_shape(dev) -> dict:
                      10)
     pairs = T * (T + 1) // 2
     flops = 10.0 * B * Hq * pairs * D
-    dq_ctas, dkdv_ctas = k4.bwd_plan(D).ctas(B, Hq, Hkv, T, T)
+    dq_ctas, dkdv_ctas = plan.ctas(B, Hq, Hkv, T, T)
     nbytes = 4 * (3 * q.numel() + 2 * k.numel() + lse.numel()) + 4 * (q.numel() + 2 * k.numel())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_fp32 = flops / FP32_FLOPS * 1e3
     t_tf32 = 3 * flops / TF32_FLOPS * 1e3
     bound, bound_fp32 = max(t_bytes, t_tf32), max(t_bytes, t_fp32)
+    floor = 7 / 5 * t_tf32  # S and dP recomputed in the second launch
     bound_by = "bytes" if t_bytes >= t_tf32 else "operations"
     phase("k4-bwd-shape", B=B, Hq=Hq, Hkv=Hkv, T=T, D=D, causal=True, dtype="float32",
-          dq_ctas=dq_ctas, dkdv_ctas=dkdv_ctas, dq_ms=f"{steps['dq']:.4f}",
+          instance="wgmma", dq_ctas=dq_ctas, dkdv_ctas=dkdv_ctas, dq_ms=f"{steps['dq']:.4f}",
           dkdv_ms=f"{steps['dkdv']:.4f}", bwd_ms=f"{ms:.4f}",
           bwd_event_ms=f"{event_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=bound_by,
+          two_launch_floor_ms=f"{floor:.4f}", share_of_floor=f"{floor / ms:.3f}",
           bound_fp32_cores_ms=f"{bound_fp32:.4f}", bytes_bound_ms=f"{t_bytes:.4f}",
           share_of_bound=f"{bound / ms:.3f}", gflop=f"{flops / 1e9:.2f}",
           tflops=f"{flops / ms / 1e9:.2f}", plain_ms=f"{plain_ms:.3f}",
@@ -2420,6 +2452,8 @@ def main() -> int:
                 phase("ptxas", source=name, function=fn[-96:], info=repr(line.strip()))
     tensor_core_sass(libs["coded_matmul.cu"], "coded_matmul_wgmma_kernel")
     tensor_core_sass(libs["flash_attention.cu"], "flash_attention_wgmma_kernel")
+    tensor_core_sass(libs["flash_attention_bwd.cu"], "attention_bwd_dq_wgmma_kernel",
+                     "attention_bwd_dkdv_wgmma_kernel")
 
     # 3.-4. K1, K2 and K3 against their plain versions, then K1 at the main
     # path's shape.

@@ -1,6 +1,7 @@
 // Row staging shared by the attention kernels (flash_attention.cu,
-// flash_attention_bwd.cu): four elements of a row as float, and rows of a
-// global tensor into an fp32 shared tile.
+// flash_attention_bwd.cu): four elements of a row as float, rows of a
+// global tensor into an fp32 shared tile, and the 3xTF32 wgmma kernels' A
+// operands: their staged layout and their split fragments.
 
 #pragma once
 
@@ -9,6 +10,7 @@
 #include <stdint.h>
 
 #include "block_io.cuh"
+#include "tma.cuh"
 
 namespace attn {
 
@@ -62,6 +64,51 @@ __device__ __forceinline__ void stage_rows(float* __restrict__ dst, int D, bool 
 #pragma unroll
         for (int d = d0; d < DMAX; d += TPR)
             dst[r * LD + d] = (src != nullptr && d < D) ? tiles::to_f32(src[d]) : 0.f;
+    }
+}
+
+// An A operand of the 3xTF32 wgmma kernels (the forward's Q, the
+// backward's Q, dO, K and V): rows of FRAG_D floats staged raw (fp32) with
+// each row's d permuted so that the A fragments of four k8 steps are 8
+// consecutive floats of a thread: d = 32c + 8j + 4h + t sits at 32c + 8t +
+// 2j + h.  The 16-byte chunks of odd rows are swapped in pairs, so the two
+// rows a quarter-warp reads fall on distinct banks.
+constexpr int FRAG_D = 128;
+__device__ __forceinline__ int frag_slot(int r, int d) {
+    const int p = (d & ~31) | ((d & 3) << 3) | ((d & 31) >> 2);
+    return r * FRAG_D + ((((p >> 2) ^ (r & 1)) << 2) | (p & 3));
+}
+
+// Rows [0, ROWS) of such a tile from the float32 global rows row_ptr gives
+// (nullptr: zeros; 16-byte aligned), columns >= D zero.
+template <int ROWS, int THREADS, typename RowPtr>
+__device__ __forceinline__ void stage_frag_rows(float* dst, int D, RowPtr row_ptr) {
+    for (int idx = threadIdx.x; idx < ROWS * FRAG_D / 4; idx += THREADS) {
+        const int r = idx / (FRAG_D / 4), d = idx % (FRAG_D / 4) * 4;
+        const float* src = row_ptr(r);
+        const float4 v = src != nullptr && d < D ? load4(src + d) : make_float4(0.f, 0.f, 0.f, 0.f);
+        dst[frag_slot(r, d)] = v.x;
+        dst[frag_slot(r, d + 1)] = v.y;
+        dst[frag_slot(r, d + 2)] = v.z;
+        dst[frag_slot(r, d + 3)] = v.w;
+    }
+}
+
+// The A fragments of two k8 steps (16 columns from 32 blk + 16 half) of
+// rows r_lo and r_lo + 8 (lane (g, t) of a warp's 16 rows) of such a tile,
+// split into TF32 big and small parts: [step][register].
+__device__ __forceinline__ void load_frags(const float* sA, int r_lo, int t, int blk, int half,
+                                           uint32_t (&big)[2][4], uint32_t (&small)[2][4]) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+        const int r = r_lo + 8 * rr;
+        const float4 x = *reinterpret_cast<const float4*>(
+            sA + r * FRAG_D + (((8 * blk + 2 * t + half) ^ (r & 1)) << 2));
+        const float v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int m = 0; m < 4; ++m)  // step 2 half + m / 2, column t + 4 (m % 2), row g + 8rr
+            hopper::split_tf32(v[m], big[m >> 1][rr + 2 * (m & 1)],
+                               small[m >> 1][rr + 2 * (m & 1)]);
     }
 }
 

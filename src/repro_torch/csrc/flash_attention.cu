@@ -128,7 +128,10 @@
 namespace {
 
 using namespace hopper;
+using attn::frag_slot;
 using attn::load4;
+using attn::load_frags;
+using attn::stage_frag_rows;
 using attn::stage_rows;
 using tiles::from_f32;
 
@@ -543,16 +546,6 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 }  // namespace wg
 
-// Q is staged raw (fp32), once a CTA, with each row's d permuted so that the
-// A fragments of four k8 steps are 8 consecutive floats of a thread: d = 32c
-// + 8j + 4h + t sits at 32c + 8t + 2j + h.  The 16-byte chunks of odd rows
-// are swapped in pairs, so the two rows a quarter-warp reads fall on
-// distinct banks.
-__device__ __forceinline__ int q_slot(int r, int d) {
-    const int p = (d & ~31) | ((d & 3) << 3) | ((d & 31) >> 2);
-    return r * wg::DMAX + ((((p >> 2) ^ (r & 1)) << 2) | (p & 3));
-}
-
 // The tile's split, by the CTA's 256 threads.  K arrives as four
 // 128-byte-swizzled boxes of 32 columns, K-major as wgmma reads it: its big
 // plane is written in place, its small plane to sKlo at the same offsets.
@@ -604,16 +597,7 @@ __device__ __forceinline__ void qk_product(float (&s)[32], const float* sQ, cons
         const int blk = c >> 1, half = c & 1;    // 32-column block, its first or second 16
         uint32_t(&big)[2][4] = qb[c & 1];
         uint32_t(&small)[2][4] = qs[c & 1];
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-            const int r = r_lo + 8 * rr;
-            const float4 x = *reinterpret_cast<const float4*>(
-                sQ + r * wg::DMAX + (((8 * blk + 2 * t + half) ^ (r & 1)) << 2));
-            const float v[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-            for (int m = 0; m < 4; ++m)  // step 2 half + m / 2, column t + 4 (m % 2), row g + 8rr
-                split_tf32(v[m], big[m >> 1][rr + 2 * (m & 1)], small[m >> 1][rr + 2 * (m & 1)]);
-        }
+        load_frags(sQ, r_lo, t, blk, half, big, small);
         wgmma_fence();
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
@@ -664,7 +648,7 @@ __device__ __forceinline__ float exp2_approx(float x) {
 __device__ __forceinline__ float plain_qk(const float* sQ, int r, const float* k_row, int D) {
     float acc = 0.f;
 #pragma unroll 1
-    for (int d = 0; d < D; ++d) acc = fmaf(sQ[q_slot(r, d)], k_row[d], acc);
+    for (int d = 0; d < D; ++d) acc = fmaf(sQ[frag_slot(r, d)], k_row[d], acc);
     return acc;
 }
 
@@ -731,18 +715,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ KvMaps maps, const Args a) 
     const int r_lo = wgi * 64 + wq * 16 + g;
     if (n_kt > 0) {
         const float* qg = static_cast<const float*>(a.q) + (size_t)b * a.qs_b;
-        for (int idx = tid; idx < BQ * DMAX / 4; idx += THREADS) {
-            const int r = idx / (DMAX / 4), d = idx % (DMAX / 4) * 4, ig = i0 + r;
-            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (ig < n_rows && d < D) {
-                const int tq = ig / group, gq = ig - tq * group;
-                v = load4(qg + (size_t)(hk * group + gq) * a.qs_h + (size_t)tq * a.qs_t + d);
-            }
-            sQ[q_slot(r, d)] = v.x;
-            sQ[q_slot(r, d + 1)] = v.y;
-            sQ[q_slot(r, d + 2)] = v.z;
-            sQ[q_slot(r, d + 3)] = v.w;
-        }
+        stage_frag_rows<BQ, THREADS>(sQ, D, [&](int r) -> const float* {
+            const int ig = i0 + r, tq = ig / group;
+            return ig < n_rows ? qg + (size_t)(hk * group + ig - tq * group) * a.qs_h +
+                                     (size_t)tq * a.qs_t
+                               : nullptr;
+        });
     }
     // The keys row r_lo + 8 rr sees: [key_lo, key_hi), key_lo <= key_hi
     // (empty for a row past the last).
@@ -950,15 +928,19 @@ bool kv_map(CUtensorMap* map, const void* base, const Args& a, long long s_t, lo
     return float_map(map, base, 4, dims, strides, box, swizzle);
 }
 
+// The runtime call comes before the maps' encoding: it makes the device's
+// context current in a thread that has none yet (autograd recomputes a
+// checkpointed forward on a thread of its own), which
+// cuTensorMapEncodeTiled needs.
 int launch_wgmma(const Args& a, cudaStream_t s) {
-    KvMaps maps;
-    if (!kv_map(&maps.k, a.k, a, a.ks_t, a.ks_h, a.ks_b, 32, CU_TENSOR_MAP_SWIZZLE_128B) ||
-        !kv_map(&maps.v, a.v, a, a.vs_t, a.vs_h, a.vs_b, wg::DMAX, CU_TENSOR_MAP_SWIZZLE_NONE))
-        return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaFuncSetAttribute(flash_attention_wgmma_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(wg::SMEM));
     if (err != cudaSuccess) return static_cast<int>(err);
+    KvMaps maps;
+    if (!kv_map(&maps.k, a.k, a, a.ks_t, a.ks_h, a.ks_b, 32, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !kv_map(&maps.v, a.v, a, a.vs_t, a.vs_h, a.vs_b, wg::DMAX, CU_TENSOR_MAP_SWIZZLE_NONE))
+        return static_cast<int>(cudaErrorInvalidValue);
     const long long ctas = (long long)((a.Hq / a.Hkv * a.Tq + wg::BQ - 1) / wg::BQ) * a.Hkv * a.B;
     if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
     flash_attention_wgmma_kernel<<<(unsigned)ctas, wg::THREADS, wg::SMEM, s>>>(maps, a);

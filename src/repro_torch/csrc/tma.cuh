@@ -1,8 +1,8 @@
 // Hopper's asynchronous copies and tensor-core products, shared by the
-// kernels that run on them (coded_matmul.cu, flash_attention.cu): mbarrier
-// waits, TMA tile loads and their descriptors, 16-byte shared stores, and
-// the TF32 wgmma instructions with A from registers and B from shared
-// memory.
+// kernels that run on them (coded_matmul.cu, flash_attention.cu,
+// flash_attention_bwd.cu): mbarrier waits, TMA tile loads and their
+// descriptors, 16-byte shared stores, and the TF32 wgmma instructions with
+// A from registers and B from shared memory.
 //
 // The descriptors come from cuTensorMapEncodeTiled, which the runtime
 // hands out through cudaGetDriverEntryPoint, so nothing links -lcuda.
@@ -157,6 +157,13 @@ __device__ __forceinline__ void keep_live(uint32_t& u, uint32_t& v) {
 __device__ __forceinline__ void keep_live(float& u, uint32_t& v) {
     asm volatile("" : "+f"(u), "+r"(v) :: "memory");
 }
+// Accumulator registers read only after the wgmma.wait_group before this:
+// the compiler cannot move a read of them above it.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
 
 // d (64 x 128, this thread's 64 floats) = (scale_d ? d : 0) + a (64 x 8,
 // registers) . b (8 x 128, shared memory, K-major), TF32 in, fp32 sum.
@@ -206,6 +213,25 @@ __device__ __forceinline__ void wgmma_tf32_m64n64k8(float (&d)[32], uint32_t a0,
 __device__ __forceinline__ void wgmma_tf32_m64n64k8(float (&d)[32], const uint32_t (&a)[4],
                                                     uint64_t desc_b, int scale_d) {
     wgmma_tf32_m64n64k8(d, a[0], a[1], a[2], a[3], desc_b, scale_d);
+}
+
+// The same with a 32-wide B: d (64 x 32, this thread's 16 floats).
+__device__ __forceinline__ void wgmma_tf32_m64n32k8(float (&d)[16], uint32_t a0, uint32_t a1,
+                                                    uint32_t a2, uint32_t a3, uint64_t desc_b,
+                                                    int scale_d) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %20, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %21, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(scale_d), "l"(desc_b));
+}
+__device__ __forceinline__ void wgmma_tf32_m64n32k8(float (&d)[16], const uint32_t (&a)[4],
+                                                    uint64_t desc_b, int scale_d) {
+    wgmma_tf32_m64n32k8(d, a[0], a[1], a[2], a[3], desc_b, scale_d);
 }
 
 }  // namespace hopper

@@ -3,7 +3,9 @@
 ``FlashAttentionFn`` runs the forward with an ``lse`` buffer
 (``kernel.flash_attention_cuda``), saves q, k, v, the output and the
 log-sum-exp, and runs the backward kernel (``kernel.flash_attention_bwd_cuda``)
-for the gradients.  ``ops.flash_attention`` sends CUDA tensors here when
+for the gradients: in training (float32, aligned rows, D <= 128) both on
+the tensor cores in 3xTF32, the forward's prefill instance and the
+backward's (``kernel.bwd_plan``).  ``ops.flash_attention`` sends CUDA tensors here when
 autograd records (grad mode on and q, k or v requiring grad); without that
 it calls the forward alone, as serving does.
 

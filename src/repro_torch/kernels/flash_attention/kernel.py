@@ -33,7 +33,11 @@ Training: given ``lse``, a (B, Hq, Tq) float32 buffer, the forward also
 stores each row's log-sum-exp for :func:`flash_attention_bwd_cuda`, the
 wrapper of the backward kernel ``csrc/flash_attention_bwd.cu`` (two launches
 a call, counted in ``flash_attention_bwd_cuda.launches``; :func:`bwd_plan`
-is its tiling).  ``autograd.FlashAttentionFn`` joins the two.
+is its instance and tiling).  Float32 calls with D <= 128 and 16-byte rows
+and strides run its tensor-core instance (3xTF32 wgmma, tiles by TMA;
+``ref.attention_bwd_3xtf32`` is the plain model of its arithmetic), the
+rest (bfloat16, D > 128, unaligned rows) its CUDA-core instance.
+``autograd.FlashAttentionFn`` joins the forward and the backward.
 """
 
 from __future__ import annotations
@@ -238,7 +242,8 @@ class BwdPlan(NamedTuple):
     dq_rows: int    # packed query rows a CTA of the dQ launch
     dq_keys: int    # keys a tile of the dQ launch
     kv_keys: int    # keys a CTA of the dK/dV launch
-    kv_rows: int    # packed query rows a tile of the dK/dV launch
+    kv_rows: int    # query rows a tile of the dK/dV launch
+    wgmma: bool = False  # the tensor-core instances (3xTF32 wgmma)
 
     def ctas(self, B: int, Hq: int, Hkv: int, Tq: int, Tk: int) -> tuple:
         """CTAs of the two launches."""
@@ -246,10 +251,18 @@ class BwdPlan(NamedTuple):
         return (-(-rows // self.dq_rows) * Hkv * B, -(-Tk // self.kv_keys) * Hkv * B)
 
 
-def bwd_plan(D: int) -> BwdPlan:
-    """The backward's tiles (as ``dispatch_dq``/``dispatch_dkdv`` in
-    csrc/flash_attention_bwd.cu pick them): 64 rows and 64 keys up to D =
-    128, 32 and 32 at D = 256.  Depends on the head dim only."""
+def bwd_plan(D: int, tensor_cores: bool = False) -> BwdPlan:
+    """The backward's instances and tiles (as ``tensor_cores``,
+    ``dispatch_dq`` and ``dispatch_dkdv`` in csrc/flash_attention_bwd.cu
+    pick them).  ``tensor_cores``: the call is float32 with 16-byte rows
+    and strides; with D <= ``WGMMA_MAX_D`` it then runs on the tensor cores
+    (3xTF32 wgmma): 128 packed rows a CTA and 32 keys a tile for dQ, 64 keys
+    a CTA and 32 query positions (one head) a tile for dK and dV
+    (``ref.attention_bwd_3xtf32`` is the plain model).  Otherwise the
+    CUDA-core instances: 64 rows and 64 keys up to D = 128, 32 and 32 at D
+    = 256.  Depends on the type, the alignment and the head dim only."""
+    if tensor_cores and D <= WGMMA_MAX_D:
+        return BwdPlan(128, 128, 32, 64, 32, True)  # the .cu's namespace tc
     if D <= 128:
         return BwdPlan(64 if D <= 64 else 128, 64, 64, 64, 64)
     return BwdPlan(256, 32, 32, 32, 32)
@@ -272,8 +285,10 @@ def flash_attention_bwd_cuda(
     """The gradients ``(dq, dk, dv)`` of :func:`flash_attention_cuda` with
     the same options, contiguous, of q's type: ``ref.attention_bwd_ref`` on
     the card, in two launches (dQ and the rows' D, then dK and dV), each
-    counted in ``flash_attention_bwd_cuda.launches``.  Keys at or beyond
-    ``tk_valid`` get zero gradients."""
+    counted in ``flash_attention_bwd_cuda.launches``, on the instance
+    ``bwd_plan(D, float32 and 16-byte rows)`` names (the kernel picks it by
+    the same rule).  Keys at or beyond ``tk_valid`` get zero gradients and
+    are never read."""
     B, Hq, Hkv, Tq, Tk, D = _check_qkv("flash_attention_bwd_cuda", q, k, v)
     tk_valid = _check_options(Tk, tk_valid, window, softcap)
     for name, t in (("o", o), ("do", do)):

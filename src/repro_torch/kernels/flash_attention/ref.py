@@ -202,6 +202,17 @@ def attention_split(q, k, v, *, chunk: int, **kw) -> torch.Tensor:
     return combine_partials(*attention_split_partials(q, k, v, chunk=chunk, **kw)).to(q.dtype)
 
 
+def _tf32_product(a: torch.Tensor, b: torch.Tensor, products: int) -> torch.Tensor:
+    """a @ b with each operand split into TF32 big and small parts by
+    truncation, small.big + big.small + big.big summed in fp32
+    (``products=3``) or big.big alone (``products=1``)."""
+    a_big, b_big = tf32_truncate(a), tf32_truncate(b)
+    if products == 1:
+        return a_big @ b_big
+    a_small, b_small = tf32_truncate(a - a_big), tf32_truncate(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
 def attention_3xtf32(
     q: torch.Tensor,  # (B, Hq, Tq, D)
     k: torch.Tensor,  # (B, Hkv, Tk, D)
@@ -230,11 +241,7 @@ def attention_3xtf32(
     vf = v[:, :, :valid].float().repeat_interleave(group, dim=1)
 
     def product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        a_big, b_big = tf32_truncate(a), tf32_truncate(b)
-        if products == 1:
-            return a_big @ b_big
-        a_small, b_small = tf32_truncate(a - a_big), tf32_truncate(b - b_big)
-        return a_small @ b_big + a_big @ b_small + a_big @ b_big
+        return _tf32_product(a, b, products)
 
     qf = q.float()
     scale = 1.0 / float(D) ** 0.5
@@ -389,3 +396,113 @@ def attention_bwd_ref(
         return g.reshape(B, Hkv, group, Tk, D).sum(dim=2)
 
     return dq.to(q.dtype), fold(dk).to(k.dtype), fold(dv).to(v.dtype)
+
+
+def attention_bwd_3xtf32(
+    q: torch.Tensor,    # (B, Hq, Tq, D)
+    k: torch.Tensor,    # (B, Hkv, Tk, D)
+    v: torch.Tensor,    # (B, Hkv, Tk, D)
+    o: torch.Tensor,    # (B, Hq, Tq, D): the forward's output
+    do: torch.Tensor,   # (B, Hq, Tq, D): the output's gradient
+    lse: torch.Tensor,  # (B, Hq, Tq): the forward's log-sum-exp
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    q_offset: int = 0,
+    kv_len: Optional[int] = None,
+    products: int = 3,
+) -> tuple:
+    """The plain model of the backward kernel's tensor-core instance
+    (``kernel.bwd_plan(D, True)``), with its tiles.  Launch 1: per CTA of
+    128 packed (t, g) rows, over tiles of 32 keys from the CTA's first
+    visible key, S = Q K^T and dP = dO V^T, dS by the mask, and each
+    tile's dS K a fresh sum added to dQ in fp32.  Launch 2: per block of 64
+    keys, per head of the group, over tiles of 32 query positions from the
+    block's first visible one, S^T, dP^T, P, w = P dtanh, dS^T = w (dP^T -
+    D), and each tile's P^T dO and dS^T Q fresh sums added to dV and dK.
+    Every product splits its operands into TF32 big and small parts by
+    truncation and sums small.big + big.small + big.big in fp32
+    (``products=3``; ``products=1``: big.big alone, one TF32 product).  The
+    semantics of :func:`attention_bwd_ref` with an int ``kv_len``, to TF32
+    rounding; ``(dq, dk, dv)`` in the inputs' type, keys at or beyond
+    ``kv_len`` zero."""
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    group, dev = Hq // Hkv, q.device
+    valid = Tk if kv_len is None else int(kv_len)
+    n_rows = group * Tq
+    scale = 1.0 / float(D) ** 0.5
+
+    def product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return _tf32_product(a, b, products)
+
+    def pair_mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+        mask = k_pos < valid
+        if causal:
+            mask = mask & (k_pos <= q_pos)
+        if window is not None:
+            mask = mask & (q_pos - k_pos < window)
+        return mask
+
+    def capped(s: torch.Tensor) -> tuple:  # softcap(s * scale) and its derivative
+        x = s * scale
+        if softcap is None:
+            return x, torch.ones_like(x)
+        th = torch.tanh(x / softcap)
+        return softcap * th, 1 - th * th
+
+    # Per KV head: (B, Hkv, group, Tq, ...); packed rows (t, g), g fastest.
+    qg, dog, og = (x.float().reshape(B, Hkv, group, Tq, D) for x in (q, do, o))
+    lseg = lse.float().reshape(B, Hkv, group, Tq)
+    lseg = torch.where(torch.isfinite(lseg), lseg, 0.0)  # such rows have no valid pair
+    deltag = (dog * og).sum(dim=-1)
+    kf, vf = k[:, :, :valid].float(), v[:, :, :valid].float()
+
+    def packed(x: torch.Tensor) -> torch.Tensor:
+        return x.transpose(2, 3).reshape(B, Hkv, n_rows, *x.shape[4:])
+
+    qp, dop, lsep, deltap = packed(qg), packed(dog), packed(lseg), packed(deltag)
+    pos = q_offset + torch.arange(n_rows, device=dev) // group
+
+    # Launch 1: dQ over query tiles.
+    dqp = torch.zeros((B, Hkv, n_rows, D), dtype=torch.float32, device=dev)
+    for i0 in range(0, n_rows, 128):
+        rows = slice(i0, min(i0 + 128, n_rows))
+        p_lo, p_hi = int(pos[rows][0]), int(pos[rows][-1])
+        k_lo = max(0, p_lo - window + 1) if window is not None else 0
+        k_hi = min(valid, p_hi + 1) if causal else valid
+        q_pos = pos[rows][:, None]
+        for k0 in range(k_lo, k_hi, 32):
+            kt, vt = kf[:, :, k0:k0 + 32], vf[:, :, k0:k0 + 32]
+            k_pos = torch.arange(k0, k0 + kt.shape[2], device=dev)[None, :]
+            mask = pair_mask(q_pos, k_pos) & (k_pos < k_hi)
+            x, dtanh = capped(product(qp[:, :, rows], kt.transpose(-1, -2)))
+            dp = product(dop[:, :, rows], vt.transpose(-1, -2))
+            p = torch.where(mask, torch.exp(x - lsep[:, :, rows, None]), 0.0)
+            ds = torch.where(mask, p * (dp - deltap[:, :, rows, None]) * dtanh, 0.0)
+            dqp[:, :, rows] += product(ds, kt)
+    dq = (dqp * scale).reshape(B, Hkv, Tq, group, D).transpose(2, 3).reshape(B, Hq, Tq, D)
+
+    # Launch 2: dK and dV over key blocks.
+    dk = torch.zeros((B, Hkv, Tk, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    for k0 in range(0, valid, 64):
+        nk = min(64, valid - k0)
+        t_lo = max(0, k0 - q_offset) if causal else 0
+        t_hi = min(Tq, k0 + nk - 1 + window - q_offset) if window is not None else Tq
+        kt, vt = kf[:, :, k0:k0 + nk], vf[:, :, k0:k0 + nk]
+        k_pos = torch.arange(k0, k0 + nk, device=dev)[:, None]
+        for g in range(group):
+            for t0 in range(t_lo, t_hi, 32):
+                ts = slice(t0, min(t0 + 32, Tq))
+                qt, dot = qg[:, :, g, ts], dog[:, :, g, ts]
+                mask = pair_mask(q_offset + torch.arange(ts.start, ts.stop, device=dev)[None, :],
+                                 k_pos)
+                x, dtanh = capped(product(kt, qt.transpose(-1, -2)))
+                dpt = product(vt, dot.transpose(-1, -2))
+                p = torch.where(mask, torch.exp(x - lseg[:, :, g, None, ts]), 0.0)
+                ds = torch.where(mask, p * dtanh * (dpt - deltag[:, :, g, None, ts]), 0.0)
+                dv[:, :, k0:k0 + nk] += product(p, dot)
+                dk[:, :, k0:k0 + nk] += product(ds, qt)
+    return dq.to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)

@@ -934,45 +934,55 @@ def test_transport_and_fleet_figures_smoke_on_the_card(card, tmp_path):
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention.autograd import kernel_forward  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,  # noqa: E402
-                                                     attention_fwd_ref)
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_3xtf32,  # noqa: E402
+                                                     attention_bwd_ref, attention_fwd_ref)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.runtime import train_loop  # noqa: E402
 
 # chip_smoke.py's [k4-bwd-check] cases: (B, Hq, Hkv, Tq, Tk, D, causal,
-# window, softcap, q_offset, tk_valid), and its limits for the gradients,
+# window, softcap, q_offset, tk_valid, the instance float32 runs: "wgmma"
+# for the tensor cores, "cuda-cores"; bfloat16 always runs the CUDA cores),
+# and its limits for the gradients,
 # |d - ref| <= atol max|ref| + rtol |ref|: float32 the forward's; bfloat16
 # rtol 2e-2 (2.5 ulp of the one rounding each side makes) and atol 1e-3,
 # tighter than the forward's 0.16, which would pass late keys' dK and dV
 # written as zeros under a causal mask.
 FA_BWD_TOL = {torch.float32: FA_TOL[torch.float32], torch.bfloat16: (2e-2, 1e-3)}
 FA_BWD_CASES = [
-    (1, 2, 2, 64, 64, 64, True, None, None, 0, None),
-    (2, 6, 2, 100, 100, 128, True, None, None, 0, None),
-    (1, 8, 2, 37, 53, 128, False, None, None, 0, None),
-    (1, 4, 2, 96, 96, 64, True, 16, None, 0, None),
-    (1, 4, 1, 80, 80, 64, True, None, 30.0, 0, None),
-    (2, 4, 2, 45, 45, 24, True, 8, 50.0, 0, None),
-    (2, 6, 2, 23, 64, 24, True, None, None, 10, 33),
-    (1, 4, 2, 16, 32, 64, True, None, None, -3, None),
-    (1, 4, 2, 5, 40, 8, True, None, None, 3, 0),
-    (1, 4, 4, 70, 200, 256, True, 32, None, 5, 75),
-    (1, 24, 8, 256, 256, 128, True, None, None, 0, None),
+    (1, 2, 2, 64, 64, 64, True, None, None, 0, None, "wgmma"),
+    (2, 6, 2, 100, 100, 128, True, None, None, 0, None, "wgmma"),  # 300 rows: ragged
+    (1, 8, 2, 37, 53, 128, False, None, None, 0, None, "wgmma"),
+    (1, 4, 2, 96, 96, 64, True, 16, None, 0, None, "wgmma"),
+    (1, 4, 1, 80, 80, 64, True, None, 30.0, 0, None, "wgmma"),
+    (2, 4, 2, 45, 45, 24, True, 8, 50.0, 0, None, "wgmma"),
+    (2, 6, 2, 23, 64, 24, True, None, None, 10, 33, "wgmma"),
+    (1, 4, 2, 16, 32, 64, True, None, None, -3, None, "wgmma"),
+    (1, 4, 2, 5, 40, 8, True, None, None, 3, 0, "wgmma"),
+    (1, 4, 4, 70, 200, 256, True, 32, None, 5, 75, "cuda-cores"),
+    (1, 24, 8, 256, 256, 128, True, None, None, 0, None, "wgmma"),
+    (2, 6, 2, 70, 160, 128, True, None, None, 40, 101, "wgmma"),  # tk_valid inside a tile
+    (1, 4, 2, 50, 50, 30, True, None, None, 0, None, "cuda-cores"),  # rows unaligned
 ]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal,window,softcap,q_offset,tk_valid",
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal,window,softcap,q_offset,tk_valid,instance",
                          FA_BWD_CASES)
 def test_flash_attention_backward_kernel_matches_plain_version(
-        card, B, Hq, Hkv, Tq, Tk, D, causal, window, softcap, q_offset, tk_valid, dtype):
+        card, B, Hq, Hkv, Tq, Tk, D, causal, window, softcap, q_offset, tk_valid, instance,
+        dtype):
     """The backward kernel against ``attention_bwd_ref`` over the valid
-    prefix (what lies beyond it is NaN and gets zero gradients), each
-    gradient within FA_BWD_TOL; the forward's lse against the plain one
-    within FA_TOL; two runs bitwise equal."""
+    prefix (what lies beyond it is NaN and gets exact zero gradients), each
+    gradient within FA_BWD_TOL, on the instance the case names for float32
+    (``bwd_plan``), the tensor-core instance also against the plain model
+    of its arithmetic (``attention_bwd_3xtf32``); the forward's lse against
+    the plain one within FA_TOL; two runs bitwise equal."""
+    plan = fa_kernel.bwd_plan(D, dtype == torch.float32 and D % 4 == 0)
+    assert ("wgmma" if plan.wgmma else "cuda-cores") == (
+        instance if dtype == torch.float32 else "cuda-cores")
     rng = np.random.default_rng(Tq * 1000 + Tk + D)
     q, k, v, do = (torch.as_tensor(rng.standard_normal(s) * 0.5, dtype=dtype, device=card)
                    for s in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D), (B, Hq, Tq, D)))
@@ -993,12 +1003,54 @@ def test_flash_attention_backward_kernel_matches_plain_version(
     torch.testing.assert_close(lse[fin], lse_ref[fin], rtol=rtol, atol=atol)
     pad = torch.zeros((B, Hkv, Tk - valid, D), dtype=dtype, device=card)
     g_rtol, g_atol = FA_BWD_TOL[dtype]
-    for g, r in zip(grads, (ref[0], torch.cat([ref[1], pad], 2), torch.cat([ref[2], pad], 2))):
-        assert g.shape == r.shape and g.dtype == dtype and bool(torch.isfinite(g).all())
-        scale = float(r.float().abs().max())
-        assert bool(((g.float() - r.float()).abs()
-                     <= g_atol * scale + g_rtol * r.float().abs()).all())
+    refs = [(ref[0], torch.cat([ref[1], pad], 2), torch.cat([ref[2], pad], 2))]
+    if plan.wgmma:
+        refs.append(attention_bwd_3xtf32(q, k, v, out, do, lse, kv_len=tk_valid, **kw))
+    for want in refs:
+        for g, r in zip(grads, want):
+            assert g.shape == r.shape and g.dtype == dtype and bool(torch.isfinite(g).all())
+            scale = float(r.float().abs().max())
+            assert bool(((g.float() - r.float()).abs()
+                         <= g_atol * scale + g_rtol * r.float().abs()).all())
+    assert all(bool((g[:, :, valid:] == 0).all()) for g in grads[1:])
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.gpu
+def test_tensor_core_attention_launches_from_a_thread_of_its_own(card):
+    """K4's tensor-core forward and backward launched first in a fresh
+    thread (autograd runs the backward, and recomputes a checkpointed
+    forward, on a thread of its own) give what they give on the main
+    thread, bit for bit: each launch makes the device's context current
+    before it encodes its TMA maps."""
+    import threading
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    q, k, v, do = (torch.randn(s, generator=gen, device=card)
+                   for s in ((2, 6, 40, 32), (2, 2, 40, 32), (2, 2, 40, 32), (2, 6, 40, 32)))
+    kw = dict(causal=True, window=16, softcap=20.0, q_offset=0)
+
+    def run():
+        out, lse = kernel_forward(q, k, v, kv_len=None, **kw)
+        grads = fa_kernel.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+        torch.cuda.synchronize()
+        return (out, *grads)
+
+    results = {}
+
+    def in_thread():
+        try:
+            results["thread"] = run()
+        except Exception as e:  # re-raised on the main thread below
+            results["error"] = e
+
+    worker = threading.Thread(target=in_thread)
+    worker.start()
+    worker.join()
+    if "error" in results:
+        raise results["error"]
+    assert fa_kernel.bwd_plan(32, True).wgmma
+    assert all(torch.equal(a, b) for a, b in zip(results["thread"], run()))
 
 
 @pytest.mark.gpu
