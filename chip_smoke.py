@@ -21,8 +21,11 @@ LM serving: phi4-mini-3.8b at its full published size through
 replicas and the card against the CPU; LM training: phi4-mini at full width
 and 8 layers through ``launch/train``, every attention's forward on K4 and
 its backward on K4's backward kernel, then the card against the CPU and
-coded data parallelism), checks the results, and prints one line per
-phase.  The line before
+coded data parallelism; the other model families: recurrentgemma-2b,
+xlstm-350m, whisper-large-v3 and moonshot-v1-16b-a3b (16 of 48 layers)
+served at their published widths, K4 at their attention shapes, and each
+family's logits and gradients on the card against the CPU), checks the
+results, and prints one line per phase.  The line before
 the last is a JSON object with every kernel's launches on the main path,
 error and times; the last line is ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; so does a machine without a CUDA card,
@@ -90,6 +93,15 @@ FA_CASES = [
     ("no-valid-key", 1, 4, 2, 5, 40, 8, True, None, None, 3, 0),
     ("window-decode-buffer", 2, 6, 2, 1, 64, 24, True, 8, None, 40, 41),
     ("head256", 1, 4, 4, 70, 200, 256, True, 32, None, 5, 75),
+    # slice C3's attention shapes, smaller: recurrentgemma's MQA at D 256
+    # with a window (prefill and a decode step in a buffer), whisper's
+    # non-causal 1500 keys (a 28-key tail past the last 64-key tile) and
+    # its cross-attention decode, moonshot's MHA
+    ("rg-mqa-d256-window", 1, 10, 1, 300, 300, 256, True, 64, None, 0, None),
+    ("rg-decode-d256-window", 2, 10, 1, 1, 512, 256, True, 64, None, 400, 401),
+    ("whisper-encoder-1500", 2, 4, 4, 1500, 1500, 64, False, None, None, 0, None),
+    ("whisper-cross-decode", 4, 20, 20, 1, 1500, 64, False, None, None, 0, None),
+    ("moonshot-mha", 1, 16, 16, 200, 256, 128, True, None, None, 0, 200),
 ]
 FA_TOL = {"float32": (2e-5, 1.6e-4), "bfloat16": (2e-2, 1.6e-1)}  # (rtol, atol), the reference's
 # K4's backward, |d - ref| <= atol max|ref| + rtol |ref| for each gradient:
@@ -103,7 +115,8 @@ FA_TOL = {"float32": (2e-5, 1.6e-4), "bfloat16": (2e-2, 1.6e-1)}  # (rtol, atol)
 FA_BWD_TOL = {"float32": FA_TOL["float32"], "bfloat16": (2e-2, 1e-3)}
 # The serving path: phi4-mini-3.8b at its published size (configs/phi4_mini_3p8b.py),
 # 4 request batches of 4 prompts of 1024 tokens, 32 new tokens each.
-SERVE = dict(arch="phi4-mini-3.8b", batches=4, batch=4, prompt=1024, new=32, max_len=2048)
+SERVE = dict(name="serve", arch="phi4-mini-3.8b", n_layers=None, batches=4, batch=4, prompt=1024,
+             new=32, max_len=2048, k4=4 * 32 * (1 + 32))
 # CCPDispatcher over two replicas of that engine, the second slowed.
 DISPATCH = dict(batches=12, prompt=128, new=8, delay_s=0.75)
 # K4 at the serving path's shapes: prefill of 1023 tokens into a 2048-slot
@@ -1523,99 +1536,127 @@ def check_flash_attention_against_plain(dev) -> None:
     torch.cuda.empty_cache()
 
 
-def flash_attention_at_path_shapes(dev) -> dict:
-    """K4, its plain version (the CPU route: attention_ref over the cache
-    buffer, masked by the valid length) and the library yardstick
-    (scaled_dot_product_attention with enable_gqa and an explicit mask, over
-    the valid prefix; the port never calls it) at the serving path's
-    prefill and decode shapes, f32, beside the bound of the same work: the
-    prefill on the tensor cores (3xTF32 wgmma, the profiler must see that
-    instance and no other), against three TF32 products on the tensor cores
-    and, for comparison, fp32 on the CUDA cores; the decode step on the CUDA
-    cores.  Then ``[k4-precision]`` at the prefill shape.  Returns the sums
-    over the two shapes for the kernels line."""
+def _valid_pairs(Tq, q_offset, tk_valid, causal, window) -> int:
+    """(query, key) pairs a call attends over: key j < tk_valid, j <= the
+    query's position if causal, position - j < window if windowed."""
+    import numpy as np
+    pos = q_offset + np.arange(Tq, dtype=np.int64)
+    hi = np.minimum(pos + 1, tk_valid) if causal else np.full(Tq, tk_valid, np.int64)
+    lo = np.zeros(Tq, np.int64) if window is None else np.maximum(pos - window + 1, 0)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def k4_at_shape(dev, gen, label: str, B, Hq, Hkv, Tq, buf, D, causal, window, off, tkv,
+                precision: bool = False) -> dict:
+    """K4 at one shape, f32, with what lies in the buffer beyond ``tkv``
+    zero (as init_cache makes it): against its plain version (the CPU
+    route: attention_ref over the buffer, masked by the valid length), its
+    device time by the profiler (every kernel the call launched must be
+    K4's, of the instance ``split_plan`` names), CUDA events (which also
+    count the card waiting for the host's enqueue where a call is as short
+    as a decode step's), the plain version's time and the library
+    yardstick (scaled_dot_product_attention with enable_gqa and an explicit
+    mask where causal or windowed, over the valid prefix; the port never
+    calls it), beside the bound of the same work: the valid pairs' products
+    as three TF32 products on the tensor cores and, for comparison, fp32 on
+    the CUDA cores, against the bytes of q, the output and the K/V rows some
+    query attends to.  ``precision``: then ``[k4-precision]``.  Prints
+    ``[label]`` and returns the row for the kernels line."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (attention_flops, attention_ref,
-                                                     flash_attention_cuda)
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention_cuda
     from repro_torch.kernels.flash_attention.kernel import split_plan
 
-    gen = torch.Generator(device=dev).manual_seed(6)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    q, k, v = _qkv(dev, gen, B, Hq, Hkv, Tq, buf, D, torch.float32)
+    k[:, :, tkv:], v[:, :, tkv:] = 0.0, 0.0
+    kw = dict(causal=causal, window=window, q_offset=off)
+
+    def k4():
+        return flash_attention_cuda(q, k, v, tk_valid=tkv, **kw)
+
+    out = k4()
+    ref = attention_ref(q, k, v, kv_len=tkv, **kw)
+    torch.cuda.synchronize()
+    err, ok = _fa_err(out, ref, torch.float32)
+    if not ok:
+        raise AssertionError(f"K4 at the {label} shape: max|err| {err:.3e}")
+    del ref
+    kv = k[:, :, :tkv], v[:, :, :tkv]
+    mask = None
+    if causal or window is not None:
+        qp = off + torch.arange(Tq, device=dev)[:, None]
+        kp = torch.arange(tkv, device=dev)[None, :]
+        mask = (kp <= qp) if causal else torch.ones((Tq, tkv), dtype=torch.bool, device=dev)
+        if window is not None:
+            mask &= (qp - kp) < window
+    lib = F.scaled_dot_product_attention(q, *kv, attn_mask=mask, enable_gqa=True)
+    lib_err = float((lib - out).abs().max())
+    plan = split_plan(B, Hq, Hkv, Tq, buf, D, sms, True)
+    kernel = "flash_attention_wgmma_kernel" if plan.wgmma else "flash_attention_kernel"
+    steps = kernel_device_ms(k4, 20 if Tq > 1 else 200, dict(k4=kernel))
+    if steps["other"] > 0:
+        raise AssertionError(f"the {label} shape launched kernels besides {kernel}")
+    ms = steps["k4"]
+    event_ms = time_ms(k4, 20 if Tq > 1 else 200)
+    plain_ms = time_ms(lambda: attention_ref(q, k, v, kv_len=tkv, **kw), 5 if Tq > 1 else 50)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, *kv, attn_mask=mask,
+                                                             enable_gqa=True),
+                     20 if Tq > 1 else 200)
+    ops = 4.0 * B * Hq * _valid_pairs(Tq, off, tkv, causal, window) * D
+    keys = tkv - (0 if window is None else max(0, off - window + 1))
+    nbytes = 2 * q.numel() * 4 + 2 * B * Hkv * keys * D * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_fp32 = ops / FP32_FLOPS * 1e3
+    t_ops = 3 * ops / TF32_FLOPS * 1e3
+    bound, bound_fp32 = max(t_bytes, t_ops), max(t_bytes, t_fp32)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    working = plan.working_ctas(B, Hkv, tkv)
+    phase(label, B=B, Hq=Hq, Hkv=Hkv, Tq=Tq, buffer=buf, q_offset=off, tk_valid=tkv, D=D,
+          causal=causal, window=window, instance=kernel, splits=plan.n_split,
+          chunk=plan.chunk, ctas=plan.ctas(B, Hkv), working_ctas=working,
+          k4_ms=f"{ms:.4f}", k4_event_ms=f"{event_ms:.4f}", bound_ms=f"{bound:.4f}",
+          bound_by=bound_by, share_of_bound=f"{bound / ms:.3f}",
+          bound_fp32_cores_ms=f"{bound_fp32:.4f}",
+          share_of_fp32_bound=f"{bound_fp32 / ms:.3f}", gflop=f"{ops / 1e9:.4f}",
+          k4_tflops=f"{ops / ms / 1e9:.2f}", mbytes=f"{nbytes / 1e6:.2f}",
+          k4_gbps=f"{nbytes / ms / 1e6:.1f}", plain_ms=f"{plain_ms:.4f}",
+          sdpa_ms=f"{lib_ms:.4f}", sdpa_max_abs_diff=f"{lib_err:.3e}",
+          max_abs_err=f"{err:.3e}")
+    if precision:
+        k4_precision(out, q, *kv)
+    del q, k, v, kv, out, lib, mask
+    torch.cuda.empty_cache()
+    return dict(shape=label, wgmma=plan.wgmma, working_ctas=working, sms=sms, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                bound_fp32_cores_ms=bound_fp32, bound_by=bound_by, max_abs_err=err)
+
+
+def flash_attention_at_path_shapes(dev) -> dict:
+    """K4 at the serving path's prefill and decode shapes (``k4_at_shape``):
+    the prefill must run on the tensor cores (3xTF32 wgmma) alone, the
+    decode step on the CUDA cores over at least one working CTA an SM.
+    Then ``[k4-precision]`` at the prefill shape.  Returns the sums over
+    the two shapes for the kernels line."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(6)
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_fp32_cores_ms=0.0,
                max_abs_err=0.0)
     for name, c in (("prefill", FA_PREFILL), ("decode", FA_DECODE)):
-        B, Hq, Hkv, Tq, D, tkv, off = (c[x] for x in ("B", "Hq", "Hkv", "Tq", "D", "tk_valid",
-                                                      "q_offset"))
-        q, k, v = _qkv(dev, gen, B, Hq, Hkv, Tq, c["buf"], D, torch.float32)
-        k[:, :, tkv:], v[:, :, tkv:] = 0.0, 0.0  # a zeroed cache buffer, as init_cache makes
-        out = flash_attention_cuda(q, k, v, causal=True, q_offset=off, tk_valid=tkv)
-        ref = attention_ref(q, k, v, causal=True, q_offset=off, kv_len=tkv)
-        torch.cuda.synchronize()
-        err, ok = _fa_err(out, ref, torch.float32)
-        if not ok:
-            raise AssertionError(f"K4 at the {name} shape: max|err| {err:.3e}")
-        del ref
-        kv = k[:, :, :tkv], v[:, :, :tkv]
-        q_pos = off + torch.arange(Tq, device=dev)[:, None]
-        mask = torch.arange(tkv, device=dev)[None, :] <= q_pos  # (Tq, tk_valid)
-        lib = F.scaled_dot_product_attention(q, *kv, attn_mask=mask, enable_gqa=True)
-        lib_err = float((lib - out).abs().max())
-        def k4():
-            return flash_attention_cuda(q, k, v, causal=True, q_offset=off, tk_valid=tkv)
-
-        plan = split_plan(B, Hq, Hkv, Tq, c["buf"], D, sms, True)
-        if plan.wgmma != (Tq > 1):
-            raise AssertionError(f"the {name} shape's plan has wgmma={plan.wgmma}")
-        # The kernel's device time (profiler), and CUDA events around
-        # back-to-back calls, which also count the card waiting for the
-        # host's enqueue where a call is as short as a decode step's.
-        kernel = "flash_attention_wgmma_kernel" if plan.wgmma else "flash_attention_kernel"
-        steps = kernel_device_ms(k4, 20 if Tq > 1 else 200, dict(k4=kernel))
-        if steps["other"] > 0:
-            raise AssertionError(f"the {name} shape launched kernels besides {kernel}")
-        ms = steps["k4"]
-        event_ms = time_ms(k4, 20 if Tq > 1 else 200)
-        plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=True, q_offset=off,
-                                                 kv_len=tkv), 5 if Tq > 1 else 50)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, *kv, attn_mask=mask,
-                                                                 enable_gqa=True),
-                         20 if Tq > 1 else 200)
-        # Bounds: q and the output once, the valid K and V prefix once,
-        # against the useful FMAs of the causal pairs: three TF32 products on
-        # the tensor cores where the instance runs them, fp32 on the CUDA
-        # cores otherwise (and for comparison).
-        ops = attention_flops(B, Hq, Tq, tkv, D, True, None)
-        nbytes = 2 * q.numel() * 4 + 2 * B * Hkv * tkv * D * 4
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_fp32 = ops / FP32_FLOPS * 1e3
-        t_ops = 3 * ops / TF32_FLOPS * 1e3 if plan.wgmma else t_fp32
-        bound, bound_fp32 = max(t_bytes, t_ops), max(t_bytes, t_fp32)
-        if Tq == 1 and plan.working_ctas(B, Hkv, tkv) < sms:
-            raise AssertionError(f"the decode step splits over {plan.working_ctas(B, Hkv, tkv)} "
-                                 f"working CTAs, fewer than the {sms} SMs")
-        phase(f"k4-{name}-shape", B=B, Hq=Hq, Hkv=Hkv, Tq=Tq, buffer=c["buf"], q_offset=off,
-              tk_valid=tkv, D=D, instance=kernel, splits=plan.n_split, chunk=plan.chunk,
-              ctas=plan.ctas(B, Hkv), working_ctas=plan.working_ctas(B, Hkv, tkv),
-              k4_ms=f"{ms:.4f}", k4_event_ms=f"{event_ms:.4f}", bound_ms=f"{bound:.4f}",
-              bound_by="bytes" if t_bytes >= t_ops else "operations",
-              share_of_bound=f"{bound / ms:.3f}", bound_fp32_cores_ms=f"{bound_fp32:.4f}",
-              gflop=f"{ops / 1e9:.4f}", k4_tflops=f"{ops / ms / 1e9:.2f}",
-              mbytes=f"{nbytes / 1e6:.2f}", k4_gbps=f"{nbytes / ms / 1e6:.1f}",
-              plain_ms=f"{plain_ms:.4f}", sdpa_ms=f"{lib_ms:.4f}",
-              sdpa_max_abs_diff=f"{lib_err:.3e}", max_abs_err=f"{err:.3e}")
-        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                         ("bound_ms", bound), ("bound_fp32_cores_ms", bound_fp32)):
-            tot[key] += val
-        tot["max_abs_err"] = max(tot["max_abs_err"], err)
-        tot[f"{name}_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        if name == "prefill":
-            k4_precision(out, q, k[:, :, :tkv], v[:, :, :tkv])
-        del q, k, v, kv, out, lib
-        torch.cuda.empty_cache()
-    # The sum is dominated by the prefill's operations bound.
-    tot["bound_by"] = tot.pop("prefill_bound_by")
-    tot.pop("decode_bound_by")
+        row = k4_at_shape(dev, gen, f"k4-{name}-shape", c["B"], c["Hq"], c["Hkv"], c["Tq"],
+                          c["buf"], c["D"], True, None, c["q_offset"], c["tk_valid"],
+                          precision=name == "prefill")
+        if row["wgmma"] != (c["Tq"] > 1):
+            raise AssertionError(f"the {name} shape's plan has wgmma={row['wgmma']}")
+        if c["Tq"] == 1 and row["working_ctas"] < row["sms"]:
+            raise AssertionError(f"the decode step splits over {row['working_ctas']} working "
+                                 f"CTAs, fewer than the {row['sms']} SMs")
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_fp32_cores_ms"):
+            tot[key] += row[key]
+        tot["max_abs_err"] = max(tot["max_abs_err"], row["max_abs_err"])
+        if name == "prefill":  # the sum is dominated by the prefill's operations bound
+            tot["bound_by"] = row["bound_by"]
     return tot
 
 
@@ -1660,119 +1701,45 @@ def _gb(tree) -> float:
     return tree.numel() * tree.element_size() / 1e9
 
 
+def _state_bytes(cache) -> int:
+    """Bytes of the tensors of a cache tree (its Python ints aside)."""
+    import torch
+    from repro_torch.models.common import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(cache)
+               if isinstance(t, torch.Tensor))
+
+
 def serve_main_path(dev) -> int:
     """phi4-mini-3.8b at its full published config (32 layers, d_model 3072,
     24 heads / 8 KV heads, head_dim 128, d_ff 8192, vocab 200064, tied
-    embeddings, fp32) on the card, random weights from a seed, through
-    ``ServeEngine.generate``: 4 request batches of 4 prompts of 1024 tokens,
-    32 new tokens each.  K4's launches are counted over exactly that run.
-    Then: the first generated token against the argmax of the no-cache
-    forward's last logits, a timed prefill and decode, and CCPDispatcher
-    over two replicas of the engine, one slowed.  Returns K4's launches."""
+    embeddings, fp32) through ``serve_family``: 4 request batches of 4
+    prompts of 1024 tokens, 32 new tokens each.  Then the decode step under
+    the profiler, and CCPDispatcher over two replicas of the engine, one
+    slowed.  Returns K4's launches."""
     import numpy as np
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.models import build_model
-    from repro_torch.runtime.serve_loop import CCPDispatcher, ServeEngine
+    from repro_torch.runtime.serve_loop import CCPDispatcher
 
-    cfg = get_config(SERVE["arch"])
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = build_model(cfg)
-    params = model.init(0, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    engine = ServeEngine(model, params, max_len=SERVE["max_len"], device=dev)
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise AssertionError("TF32 products on the fp32 serving path")
-    rng = np.random.default_rng(0)
-    batches = [rng.integers(0, cfg.vocab, size=(SERVE["batch"], SERVE["prompt"])).astype(np.int32)
-               for _ in range(SERVE["batches"])]
-    kv_gb = (cfg.n_layers * 2 * SERVE["batch"] * cfg.n_kv_heads * SERVE["max_len"]
-             * cfg.head_dim_ * 4 / 1e9)
+    def after(model, params, engine, toks, rng, cfg):
+        profile_decode(model, params, toks)
 
-    # The main path, counted.
-    flash_attention_cuda.launches = 0
-    t0 = time.perf_counter()
-    results = [engine.generate(b, n_new=SERVE["new"]) for b in batches]
-    wall = time.perf_counter() - t0
-    launches = flash_attention_cuda.launches
-    expect = SERVE["batches"] * cfg.n_layers * (1 + SERVE["new"])
-    n_tok = sum(r.size for r in results)
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    if launches != expect:
-        raise AssertionError(f"K4 launched {launches} times on the serving path, expected {expect}")
-    for r in results:
-        if not (r.shape == (SERVE["batch"], SERVE["new"]) and r.dtype == np.int32
-                and r.min() >= 0 and r.max() < cfg.vocab):
-            raise AssertionError(f"a generated batch has shape {r.shape}, range "
-                                 f"[{r.min()}, {r.max()}]")
+        def replica(delay):
+            def run(b):
+                time.sleep(delay)
+                return engine.generate(b, n_new=DISPATCH["new"])
+            return run
 
-    # A timed prefill and decode of the first batch, on the device's clock.
-    toks = torch.as_tensor(batches[0], device=dev)
-    cache = model.init_cache(SERVE["batch"], SERVE["max_len"], device=dev)
-    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-    with torch.no_grad():
-        start.record()
-        _, cache = model.prefill(params, toks[:, :-1], cache)
-        mid.record()
-        cur = toks[:, -1:]
-        t1 = time.perf_counter()
-        for _ in range(SERVE["new"]):
-            logits, cache = model.decode_step(params, cur, cache)
-            cur = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
-        enqueue = time.perf_counter() - t1
-        end.record()
-        end.synchronize()
-        decode_wall = time.perf_counter() - t1
-    prefill_ms = start.elapsed_time(mid)
-    decode_ms = mid.elapsed_time(end) / SERVE["new"]
-    if not torch.equal(cur[:, 0].cpu(), torch.as_tensor(results[0][:, -1])):
-        raise AssertionError("the timed decode's last tokens differ from generate's")
-    del cache, logits
+        small = [rng.integers(0, cfg.vocab, size=(SERVE["batch"], DISPATCH["prompt"]))
+                 .astype(np.int32) for _ in range(DISPATCH["batches"])]
+        t0 = time.perf_counter()
+        out, allocs = CCPDispatcher([replica(0.0), replica(DISPATCH["delay_s"])]).run(small)
+        phase("serve-dispatch", replicas=2, slow_delay_s=DISPATCH["delay_s"],
+              batches=len(small), prompt=DISPATCH["prompt"], new_tokens=DISPATCH["new"],
+              allocs="|".join(",".join(str(int(x)) for x in a) for a in allocs),
+              wall_s=f"{time.perf_counter() - t0:.3f}")
+        if not all(r is not None and r.shape == (SERVE["batch"], DISPATCH["new"]) for r in out):
+            raise AssertionError("a dispatched batch came back with the wrong shape")
 
-    # First generated token == argmax of the no-cache forward's last logits.
-    with torch.no_grad():
-        fwd = model.forward(params, toks)
-    expect_first = torch.argmax(fwd[:, -1], dim=-1).cpu().numpy()
-    del fwd
-    if not np.array_equal(results[0][:, 0], expect_first):
-        raise AssertionError(f"first tokens {results[0][:, 0]} != forward argmax {expect_first}")
-    phase("serve", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-          heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", head_dim=cfg.head_dim_, d_ff=cfg.d_ff,
-          vocab=cfg.vocab, dtype=cfg.param_dtype, params=cfg.n_params(),
-          weights_gb=f"{_gb(params):.3f}", kv_cache_gb=f"{kv_gb:.3f}",
-          max_memory_allocated_gb=f"{peak:.3f}", init_s=f"{init_s:.2f}",
-          batches=SERVE["batches"], batch=SERVE["batch"], prompt=SERVE["prompt"],
-          new_tokens=SERVE["new"], wall_s=f"{wall:.3f}", tokens_per_s=f"{n_tok / wall:.1f}",
-          prefill_ms=f"{prefill_ms:.2f}", decode_ms_per_step=f"{decode_ms:.3f}",
-          decode_enqueue_ms_per_step=f"{enqueue * 1e3 / SERVE['new']:.3f}",
-          decode_wall_ms_per_step=f"{decode_wall * 1e3 / SERVE['new']:.3f}",
-          k4_launches=launches, first_token="forward-argmax")
-    profile_decode(model, params, toks)
-
-    # CCP dispatch over two replicas of the engine, the second slowed.
-    def replica(delay):
-        def run(b):
-            time.sleep(delay)
-            return engine.generate(b, n_new=DISPATCH["new"])
-        return run
-
-    small = [rng.integers(0, cfg.vocab, size=(SERVE["batch"], DISPATCH["prompt"]))
-             .astype(np.int32) for _ in range(DISPATCH["batches"])]
-    t0 = time.perf_counter()
-    out, allocs = CCPDispatcher([replica(0.0), replica(DISPATCH["delay_s"])]).run(small)
-    phase("serve-dispatch", replicas=2, slow_delay_s=DISPATCH["delay_s"], batches=len(small),
-          prompt=DISPATCH["prompt"], new_tokens=DISPATCH["new"],
-          allocs="|".join(",".join(str(int(x)) for x in a) for a in allocs),
-          wall_s=f"{time.perf_counter() - t0:.3f}")
-    if not all(r is not None and r.shape == (SERVE["batch"], DISPATCH["new"]) for r in out):
-        raise AssertionError("a dispatched batch came back with the wrong shape")
-    del engine, params, model
-    torch.cuda.empty_cache()
-    return launches
+    return serve_family(dev, SERVE, after)
 
 
 def profile_decode(model, params, toks, steps: int = 3) -> None:
@@ -1906,6 +1873,7 @@ FA_BWD_CASES = [
     ("phi4-heads", 1, 24, 8, 256, 256, 128, True, None, None, 0, None),
     ("offset-buffer-d128", 2, 6, 2, 70, 160, 128, True, None, None, 40, 101),
     ("unaligned-d30", 1, 4, 2, 50, 50, 30, True, None, None, 0, None),
+    ("rg-heads-d256-window", 1, 10, 1, 256, 256, 256, True, 64, None, 0, None),
 ]
 # K4's backward at the training shape (phi4-mini's heads, 1024 tokens, a
 # microbatch of 4 sequences, causal, f32).
@@ -2020,37 +1988,37 @@ def check_flash_attention_bwd(dev) -> None:
     torch.cuda.empty_cache()
 
 
-def flash_attention_bwd_at_train_shape(dev) -> dict:
-    """K4's backward at the training shape (B 4, 24/8 heads, 1024 tokens, D
-    128, causal, f32), which must run the tensor-core instance: the two
-    launches' device time by the profiler (by kernel name) and by CUDA
-    events, the plain version's time, the library yardstick (the backward
-    of ``scaled_dot_product_attention(..., is_causal=True,
-    enable_gqa=True)`` in fp32, timed only; the port never calls it) and
+def k4_bwd_at_shape(dev, label: str, B, Hq, Hkv, T, D, window=None) -> dict:
+    """K4's backward at one causal f32 shape, on the instance ``bwd_plan``
+    names: against the plain version, the two launches' device time by the
+    profiler (by kernel name: anything else the backward launched fails)
+    and by CUDA events, the plain version's time, the library yardstick (the
+    backward of ``scaled_dot_product_attention(..., is_causal=True,
+    enable_gqa=True)`` in fp32, timed only; the port never calls it; no
+    window, which changes nothing where the window spans the sequence) and
     the bounds: 10 B Hq pairs D FLOP as three TF32 products on the tensor
     cores (the least time fp32-accurate products take on the card, as for
     K1 and K4's forward), beside it the two-launch design's own floor (7 of
     those 5 products a pair: 7/5 of the bound) and the bound over the CUDA
     cores' fp32 rate; the bytes of q, k, v, o, dO, lse in and dq, dk, dv
-    out.  Returns the numbers for the kernels line."""
+    out.  Prints ``[k4-bwd-shape]`` and returns the numbers for the
+    kernels line."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as k4
     from repro_torch.kernels.flash_attention.autograd import kernel_forward
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
-    c = FA_BWD_SHAPE
-    B, Hq, Hkv, T, D = c["B"], c["Hq"], c["Hkv"], c["T"], c["D"]
     gen = torch.Generator(device=dev).manual_seed(8)
     q, k, v, do = _fa_bwd_inputs(dev, gen, B, Hq, Hkv, T, T, D, torch.float32, None)
-    out, lse = kernel_forward(q, k, v, causal=True, window=None, softcap=None, q_offset=0,
-                              kv_len=None)
+    kw = dict(causal=True, window=window, softcap=None, q_offset=0)
+    out, lse = kernel_forward(q, k, v, kv_len=None, **kw)
 
     def bwd():
-        return k4.flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=True)
+        return k4.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
 
     grads = bwd()
-    ref = attention_bwd_ref(q, k, v, out, do, lse, causal=True)
+    ref = attention_bwd_ref(q, k, v, out, do, lse, **kw)
     torch.cuda.synchronize()
     rtol, atol = FA_TOL["float32"]
     err, ok = 0.0, True
@@ -2059,27 +2027,23 @@ def flash_attention_bwd_at_train_shape(dev) -> dict:
         err = max(err, float((g - r).abs().max()))
         ok = ok and bool(((g - r).abs() <= atol * scale + rtol * r.abs()).all())
     if not ok:
-        raise AssertionError(f"K4's backward at the training shape: max|err| {err:.3e}")
+        raise AssertionError(f"K4's backward at the {label} shape: max|err| {err:.3e}")
     del grads, ref
     plan = k4.bwd_plan(D, True)
-    if not plan.wgmma:
-        raise AssertionError("the training shape's backward is not on the tensor cores")
-    # The tensor-core instance's two kernels by name: the profiler raises if
-    # either is missing, and anything else the backward launched is "other".
-    steps = kernel_device_ms(bwd, 20, dict(dq="attention_bwd_dq_wgmma_kernel",
-                                           dkdv="attention_bwd_dkdv_wgmma_kernel"))
+    tc = "_wgmma" if plan.wgmma else ""
+    steps = kernel_device_ms(bwd, 20, dict(dq=f"attention_bwd_dq{tc}_kernel",
+                                           dkdv=f"attention_bwd_dkdv{tc}_kernel"))
     if steps["other"] > 0:
         raise AssertionError("the backward launched kernels besides its two")
     ms = steps["dq"] + steps["dkdv"]
     event_ms = time_ms(bwd, 10)
-    plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, out, do, lse, causal=True), 3)
+    plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, out, do, lse, **kw), 3)
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
     lib_diff = float((lib_out.detach() - out).abs().max())
     lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True),
                      10)
-    pairs = T * (T + 1) // 2
-    flops = 10.0 * B * Hq * pairs * D
+    flops = 10.0 * B * Hq * _valid_pairs(T, 0, T, True, window) * D
     dq_ctas, dkdv_ctas = plan.ctas(B, Hq, Hkv, T, T)
     nbytes = 4 * (3 * q.numel() + 2 * k.numel() + lse.numel()) + 4 * (q.numel() + 2 * k.numel())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2088,8 +2052,9 @@ def flash_attention_bwd_at_train_shape(dev) -> dict:
     bound, bound_fp32 = max(t_bytes, t_tf32), max(t_bytes, t_fp32)
     floor = 7 / 5 * t_tf32  # S and dP recomputed in the second launch
     bound_by = "bytes" if t_bytes >= t_tf32 else "operations"
-    phase("k4-bwd-shape", B=B, Hq=Hq, Hkv=Hkv, T=T, D=D, causal=True, dtype="float32",
-          instance="wgmma", dq_ctas=dq_ctas, dkdv_ctas=dkdv_ctas, dq_ms=f"{steps['dq']:.4f}",
+    phase("k4-bwd-shape", shape=label, B=B, Hq=Hq, Hkv=Hkv, T=T, D=D, causal=True,
+          window=window, dtype="float32", instance="wgmma" if plan.wgmma else "cuda-cores",
+          dq_ctas=dq_ctas, dkdv_ctas=dkdv_ctas, dq_ms=f"{steps['dq']:.4f}",
           dkdv_ms=f"{steps['dkdv']:.4f}", bwd_ms=f"{ms:.4f}",
           bwd_event_ms=f"{event_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=bound_by,
           two_launch_floor_ms=f"{floor:.4f}", share_of_floor=f"{floor / ms:.3f}",
@@ -2100,8 +2065,20 @@ def flash_attention_bwd_at_train_shape(dev) -> dict:
           max_abs_err=f"{err:.3e}")
     del q, k, v, do, out, lse, ql, kl, vl, lib_out
     torch.cuda.empty_cache()
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
-                max_abs_err=err, bound_fp32_cores_ms=bound_fp32)
+    return dict(shape=label, wgmma=plan.wgmma, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=lib_ms, max_abs_err=err,
+                bound_fp32_cores_ms=bound_fp32)
+
+
+def flash_attention_bwd_at_train_shape(dev) -> dict:
+    """K4's backward at the training shape (FA_BWD_SHAPE: B 4, 24/8 heads,
+    1024 tokens, D 128, causal, f32, ``k4_bwd_at_shape``), which must run
+    the tensor-core instance."""
+    c = FA_BWD_SHAPE
+    row = k4_bwd_at_shape(dev, "train", c["B"], c["Hq"], c["Hkv"], c["T"], c["D"])
+    if not row.pop("wgmma"):
+        raise AssertionError("the training shape's backward is not on the tensor cores")
+    return row
 
 
 def train_main_path(dev) -> dict:
@@ -2407,6 +2384,446 @@ def coded_dp_train(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# --- The other model families (slice C3) ------------------------------------------
+
+# The serving paths of slice C3, each through ServeEngine.generate at its
+# published width (configs/*.py), random weights from seed 0: (phase name,
+# arch, layers (None: the published depth), request batches, prompts a
+# batch, prompt tokens, new tokens, max_len, K4's launches over the run).
+# recurrentgemma-2b (26 layers, 8 of them local attention with a window of
+# 2048) takes prompts past its window; xlstm-350m has no attention; whisper
+# reads stub frames (B, 1500, 1280) x 0.02 and its launches are the
+# encoder's 32 plus the decoder's self- and cross-attention, 32 each, at the
+# prefill and at every step; moonshot-v1-16b-a3b runs 16 of its 48 layers
+# (2.35 GB of fp32 weights a layer: the full depth is 115.6 GB).
+FAMILY_SERVE = [
+    dict(name="serve-recurrentgemma", arch="recurrentgemma-2b", n_layers=None, batches=2, batch=2,
+         prompt=3072, new=16, max_len=4096, k4=2 * 8 * (1 + 16)),
+    dict(name="serve-xlstm", arch="xlstm-350m", n_layers=None, batches=2, batch=4, prompt=512,
+         new=16, max_len=1024, k4=0),
+    dict(name="serve-whisper", arch="whisper-large-v3", n_layers=None, batches=2, batch=4,
+         prompt=64, new=32, max_len=128, k4=2 * (32 + 32 * 33 + 32 * 33)),
+    dict(name="serve-moe", arch="moonshot-v1-16b-a3b", n_layers=16, batches=2, batch=4, prompt=512,
+         new=16, max_len=1024, k4=2 * 16 * 17),
+]
+# K4 at the new paths' shapes (f32): (name, B, Hq, Hkv, Tq, buffer, D,
+# causal, window, q_offset, tk_valid).  recurrentgemma's prefill of 3071
+# tokens and a decode step in its 4096-slot buffer (MQA, 10/1 heads, D 256:
+# the CUDA-core instance); whisper's encoder (non-causal, 1500 x 1500, D 64:
+# the tensor cores, a 28-key tail) and its cross-attention decode step over
+# the 1500 encoder keys; moonshot's MHA prefill of 511 tokens.
+FA_FAMILY_SHAPES = [
+    ("recurrentgemma-prefill", 2, 10, 1, 3071, 4096, 256, True, 2048, 0, 3071),
+    ("recurrentgemma-decode", 2, 10, 1, 1, 4096, 256, True, 2048, 3079, 3080),
+    ("whisper-encoder", 4, 20, 20, 1500, 1500, 64, False, None, 0, 1500),
+    ("whisper-cross-decode", 4, 20, 20, 1, 1500, 64, False, None, 0, 1500),
+    ("moonshot-prefill", 4, 16, 16, 511, 1024, 128, True, None, 0, 511),
+]
+# K4's backward at recurrentgemma's heads (the [families-train-card] shape:
+# 1 x 256 tokens, 10/1 heads, D 256, window 2048): the CUDA-core instance.
+FA_BWD_FAMILY_SHAPE = dict(B=1, Hq=10, Hkv=1, T=256, D=256, window=2048)
+# The card against the CPU, teacher-forced logits (B 1, prompt 128, 4 new
+# tokens) within CARD_VS_CPU's 1e-4: recurrentgemma at full width and 3
+# layers (rglru, rglru, attn_local), xlstm at 2, whisper at 2 + 2, moonshot
+# at 2, qwen3-moe at its smoke config (9.95 GB a layer at full width, too
+# large for the CPU side).  MoE routes are compared first: a token whose
+# k-th and (k+1)-th router probabilities lie within ROUTE_TIE may route
+# differently; any other must not.
+FAMILY_CARD_VS_CPU = [
+    ("recurrentgemma-2b", dict(n_layers=3, block_pattern=("rglru", "rglru", "attn_local")),
+     False),
+    ("xlstm-350m", dict(n_layers=2), False),
+    ("whisper-large-v3", dict(n_layers=2, n_enc_layers=2), False),
+    ("moonshot-v1-16b-a3b", dict(n_layers=2), False),
+    ("qwen3-moe-235b-a22b", {}, True),
+]
+ROUTE_TIE = 1e-6
+# loss_fn(...).backward() on the card against the CPU, TRAIN_CARD_VS_CPU's
+# tolerances: recurrentgemma at full width, 3 layers, 1 x 256 tokens (K4's
+# D = 256 backward), the others at their smoke configs, 2 x 64 tokens.  A
+# leaf whose gradient is zero in exact arithmetic (whisper's key biases: no
+# RoPE, and a row's softmax ignores a constant added to its scores) is
+# rounding noise: below GRAD_NOISE of the largest leaf on both devices.
+FAMILY_TRAIN = [
+    ("recurrentgemma-2b", dict(n_layers=3, block_pattern=("rglru", "rglru", "attn_local")),
+     False, 1, 256),
+    ("xlstm-350m", {}, True, 2, 64),
+    ("whisper-large-v3", {}, True, 2, 64),
+    ("moonshot-v1-16b-a3b", {}, True, 2, 64),
+    ("qwen3-moe-235b-a22b", {}, True, 2, 64),
+]
+GRAD_NOISE = 1e-6
+
+
+def k4_family_shapes(dev) -> list:
+    """K4 at each new path's shape (FA_FAMILY_SHAPES, ``k4_at_shape``).
+    Returns one row a shape for the kernels line."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows = []
+    for name, *shape in FA_FAMILY_SHAPES:
+        row = k4_at_shape(dev, gen, f"k4-{name}-shape", *shape)
+        row["shape"] = name
+        rows.append({k: v for k, v in row.items() if k not in ("wgmma", "working_ctas", "sms")})
+    return rows
+
+
+def k4_bwd_family_shape(dev) -> dict:
+    """K4's backward at FA_BWD_FAMILY_SHAPE (recurrentgemma's heads, D 256,
+    ``k4_bwd_at_shape``), which runs the CUDA-core instance."""
+    c = FA_BWD_FAMILY_SHAPE
+    row = k4_bwd_at_shape(dev, "recurrentgemma", c["B"], c["Hq"], c["Hkv"], c["T"], c["D"],
+                          c["window"])
+    if row.pop("wgmma"):
+        raise AssertionError("the D 256 backward ran on the tensor cores")
+    return row
+
+
+def serve_family(dev, spec: dict, after=None) -> int:
+    """A serving path (SERVE, FAMILY_SERVE) through
+    ``ServeEngine.generate``: the model at its published width on the card
+    (random weights from seed 0), its request batches with K4's launches
+    counted over exactly that run (they must be ``spec["k4"]``), then a
+    timed prefill and decode of the first batch on the device's clock,
+    whose last tokens must be generate's.  The first token must be the
+    no-cache forward's argmax (not for MoE, whose capacity, and so its
+    drops, depends on the tokens in the call).  Per family: recurrentgemma
+    the RG-LRU scan's device ms at the prefill's shape; xlstm its cache
+    bytes at max_len 1024 and 4096 (equal) and the launches of its token
+    loop; moe the assignments dropped at capacity in the prefill and a
+    second prefill bitwise equal.  ``after(model, params, engine, toks, rng,
+    cfg)`` runs last.  Prints ``[spec["name"]]``; returns K4's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import rglru
+    from repro_torch.models.transformer import block_kinds
+    from repro_torch.runtime.serve_loop import ServeEngine
+
+    over = {} if spec["n_layers"] is None else {"n_layers": spec["n_layers"]}
+    cfg = get_config(spec["arch"], **over)
+    B, P, new, max_len = spec["batch"], spec["prompt"], spec["new"], spec["max_len"]
+    if cfg.enc_dec:
+        expect = spec["batches"] * (cfg.n_enc_layers + 2 * cfg.n_layers * (1 + new))
+    else:
+        expect = spec["batches"] * sum(k.startswith("attn") for k in block_kinds(cfg)) * (1 + new)
+    if expect != spec["k4"]:
+        raise AssertionError(f"{spec['name']}: K4's launches are {expect} by the config, "
+                             f"{spec['k4']} by the table")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServeEngine(model, params, max_len=max_len, device=dev)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 products on the fp32 serving path")
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, cfg.vocab, size=(B, P)).astype(np.int32)
+               for _ in range(spec["batches"])]
+    frames = [(rng.standard_normal((B, cfg.enc_frames, cfg.d_model)) * 0.02).astype(np.float32)
+              if cfg.enc_dec else None for _ in batches]
+
+    # The path, counted.
+    flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    results = [engine.generate(b, n_new=new, embeds=f) for b, f in zip(batches, frames)]
+    wall = time.perf_counter() - t0
+    launches = flash_attention_cuda.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches != spec["k4"]:
+        raise AssertionError(f"K4 launched {launches} times on the {spec['name']} path, "
+                             f"expected {spec['k4']}")
+    for r in results:
+        if not (r.shape == (B, new) and r.dtype == np.int32 and r.min() >= 0
+                and r.max() < cfg.vocab):
+            raise AssertionError(f"a generated batch has shape {r.shape}, range "
+                                 f"[{r.min()}, {r.max()}]")
+
+    # A timed prefill and decode of the first batch, on the device's clock.
+    toks = torch.as_tensor(batches[0], device=dev)
+    emb = None if frames[0] is None else torch.as_tensor(frames[0], device=dev)
+    extra = {}
+    if cfg.moe is not None:
+        moe_mod.set_moe_opts(count_drops=True)
+        moe_mod.moe_block.dropped = 0
+    cache = model.init_cache(B, max_len, device=dev)
+    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    with torch.no_grad():
+        start.record()
+        first, cache = model.prefill(params, toks[:, :-1], cache, emb)
+        mid.record()
+        moe_mod.set_moe_opts()
+        cur = toks[:, -1:]
+        t1 = time.perf_counter()
+        for _ in range(new):
+            logits, cache = model.decode_step(params, cur, cache)
+            cur = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        enqueue = time.perf_counter() - t1
+        end.record()
+        end.synchronize()
+        decode_wall = time.perf_counter() - t1
+    prefill_ms = start.elapsed_time(mid)
+    decode_ms = mid.elapsed_time(end) / new
+    cache_gb = _state_bytes(cache) / 1e9
+    if not torch.equal(cur[:, 0].cpu(), torch.as_tensor(results[0][:, -1])):
+        raise AssertionError("the timed decode's last tokens differ from generate's")
+    del cache, logits
+    if cfg.moe is not None:
+        extra["dropped_at_capacity"] = int(moe_mod.moe_block.dropped)
+        extra["assignments"] = (P - 1) * B * cfg.n_layers * cfg.moe.top_k
+        moe_mod.moe_block.dropped = 0
+        with torch.no_grad():
+            again, _ = model.prefill(params, toks[:, :-1],
+                                     model.init_cache(B, max_len, device=dev), emb)
+        extra["prefill_bitwise_repeat"] = bool(torch.equal(first, again))
+        if not extra["prefill_bitwise_repeat"]:
+            raise AssertionError("two MoE prefills differ")
+        extra["first_token"] = "not-compared:moe-capacity-depends-on-the-call"
+        del again
+    else:
+        # First generated token == argmax of the no-cache forward's last logits.
+        with torch.no_grad():
+            fwd = model.forward(params, toks, emb)[:, -1]
+        expect_first = torch.argmax(fwd, dim=-1).cpu().numpy()
+        del fwd
+        if not np.array_equal(results[0][:, 0], expect_first):
+            raise AssertionError(f"first tokens {results[0][:, 0]} != forward argmax "
+                                 f"{expect_first}")
+        extra["first_token"] = "forward-argmax"
+    if spec["name"] == "serve-recurrentgemma":
+        u = torch.randn((B, P - 1, cfg.lru_width), generator=torch.Generator(device=dev)
+                        .manual_seed(3), device=dev)
+        mixer = params["blocks"][0]["mixer"]
+        scan_ms = time_ms(lambda: rglru._rglru_scan(u, mixer, None), 5)
+        n_rg = sum(k == "rglru" for k in block_kinds(cfg))
+        extra.update(rglru_scan_ms=f"{scan_ms:.3f}", rglru_layers=n_rg,
+                     rglru_scan_ms_per_prefill=f"{scan_ms * n_rg:.2f}")
+        del u
+    if spec["name"] == "serve-xlstm":
+        b1 = _state_bytes(model.init_cache(B, 1024, device=dev))
+        b4 = _state_bytes(model.init_cache(B, 4096, device=dev))
+        extra.update(cache_bytes_max_len_1024=b1, cache_bytes_max_len_4096=b4,
+                     **xlstm_launches(model, params, toks))
+        if b1 != b4:
+            raise AssertionError(f"xLSTM's cache grows with max_len: {b1} -> {b4}")
+    n_tok = sum(r.size for r in results)
+    phase(spec["name"], arch=cfg.name, layers=cfg.n_layers,
+          enc_layers=cfg.n_enc_layers or None, d_model=cfg.d_model,
+          heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", head_dim=cfg.head_dim_, d_ff=cfg.d_ff,
+          vocab=cfg.vocab, dtype=cfg.param_dtype, params=cfg.n_params(),
+          weights_gb=f"{_gb(params):.3f}", cache_gb=f"{cache_gb:.3f}",
+          max_memory_allocated_gb=f"{peak:.3f}", init_s=f"{init_s:.2f}",
+          batches=spec["batches"], batch=B, prompt=P, new_tokens=new, max_len=max_len,
+          wall_s=f"{wall:.3f}", tokens_per_s=f"{n_tok / wall:.1f}",
+          prefill_ms=f"{prefill_ms:.2f}", decode_ms_per_step=f"{decode_ms:.3f}",
+          decode_enqueue_ms_per_step=f"{enqueue * 1e3 / new:.3f}",
+          decode_wall_ms_per_step=f"{decode_wall * 1e3 / new:.3f}", k4_launches=launches,
+          **extra)
+    if after is not None:
+        after(model, params, engine, toks, rng, cfg)
+    del engine, params, model, first
+    torch.cuda.empty_cache()
+    return launches
+
+
+def xlstm_launches(model, params, toks, n: int = 16) -> dict:
+    """The kernel launches of xLSTM's token loop: torch.profiler over a
+    prefill of ``n`` tokens, the launches a token (all layers)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    B = toks.shape[0]
+    with torch.no_grad():
+        model.prefill(params, toks[:, :n], model.init_cache(B, 64, device=toks.device))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.prefill(params, toks[:, :n], model.init_cache(B, 64, device=toks.device))
+            torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    return dict(launches_per_prefill_token=f"{launches / n:.0f}")
+
+
+def _route_recorder():
+    """Wrap ``moe.route`` so every call's router probabilities and top-k
+    experts are kept (on the CPU), call by call."""
+    from repro_torch.models import moe as moe_mod
+
+    calls, inner = [], moe_mod.route
+
+    def route(params, xf, cfg):
+        probs, top_w, top_e = inner(params, xf, cfg)
+        calls.append((probs.detach().cpu(), top_e.detach().cpu()))
+        return probs, top_w, top_e
+
+    return calls, route, inner
+
+
+def families_card_vs_cpu(dev) -> None:
+    """FAMILY_CARD_VS_CPU: the same weights on the card (K4, cuBLAS) and on
+    the CPU (the plain version): prefill, then the logits of every decode
+    step teacher-forced with the card's tokens, within CARD_VS_CPU's
+    tolerance.  For MoE the routes are compared first, call by call
+    (each layer's prefill and decode steps): the tokens whose k-th and
+    (k+1)-th router probabilities (the CPU's) lie within ROUTE_TIE are
+    counted; any other token routed to another expert set fails; a step's
+    logits are compared only while every route so far agrees."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import tree_map
+    from repro_torch.runtime.serve_loop import ServeEngine
+
+    c = CARD_VS_CPU
+    for arch, over, smoke in FAMILY_CARD_VS_CPU:
+        cfg = get_config(arch, smoke=smoke, **over)
+        model = build_model(cfg)
+        on_card = model.init(1, device=dev)
+        on_cpu = tree_map(lambda t: t.cpu(), on_card)
+        rng = np.random.default_rng(1)
+        prompt = rng.integers(0, cfg.vocab, size=(c["B"], c["prompt"])).astype(np.int32)
+        frames = ((rng.standard_normal((c["B"], cfg.enc_frames, cfg.d_model)) * 0.02)
+                  .astype(np.float32) if cfg.enc_dec else None)
+        max_len = c["prompt"] + c["new"]
+        toks_card = ServeEngine(model, on_card, max_len=max_len, device=dev).generate(
+            prompt, c["new"], embeds=frames)
+        forced = np.concatenate([prompt[:, -1:], toks_card[:, :-1]], axis=1)
+        runs, routes = [], []
+        for params, d in ((on_card, dev), (on_cpu, torch.device("cpu"))):
+            calls, route, inner = _route_recorder()
+            moe_mod.route = route
+            try:
+                with torch.no_grad():
+                    emb = None if frames is None else torch.as_tensor(frames, device=d)
+                    cache = model.init_cache(c["B"], max_len, device=d)
+                    logits, cache = model.prefill(params, torch.as_tensor(prompt[:, :-1],
+                                                                          device=d), cache, emb)
+                    steps, marks = [logits.cpu()], [len(calls)]
+                    for t in range(c["new"]):
+                        logits, cache = model.decode_step(
+                            params, torch.as_tensor(forced[:, t:t + 1], device=d), cache)
+                        steps.append(logits.cpu())
+                        marks.append(len(calls))
+            finally:
+                moe_mod.route = inner
+            runs.append(steps)
+            routes.append((calls, marks))
+        (calls_card, marks), (calls_cpu, _) = routes
+        ties = differ = 0
+        agree_until = len(calls_card)
+        k = cfg.moe.top_k if cfg.moe is not None else 0
+        for i, ((_, e_card), (p_cpu, e_cpu)) in enumerate(zip(calls_card, calls_cpu)):
+            top = torch.sort(p_cpu, dim=-1, descending=True).values
+            tie = (top[:, k - 1] - top[:, k]) <= ROUTE_TIE
+            same = torch.equal(torch.sort(e_card, -1).values, torch.sort(e_cpu, -1).values)
+            rows_differ = (torch.sort(e_card, -1).values != torch.sort(e_cpu, -1).values).any(-1)
+            ties += int(tie.sum())
+            differ += int(rows_differ.sum())
+            if bool((rows_differ & ~tie).any()):
+                raise AssertionError(f"{arch}: a token without a near-tie routes differently "
+                                     f"on the card and on the CPU (call {i})")
+            if not same:
+                agree_until = min(agree_until, i)
+        worst, scale, compared = 0.0, 0.0, 0
+        for s, (a, b) in enumerate(zip(*runs)):
+            if cfg.moe is not None and marks[s] > agree_until:
+                continue
+            compared += 1
+            worst = max(worst, float((a - b).abs().max()))
+            scale = max(scale, float(b.abs().max()))
+            if not torch.allclose(a, b, rtol=c["rtol"], atol=c["atol"]):
+                raise AssertionError(f"{arch}: card and CPU logits differ by {worst:.3e}")
+        phase("families-card-vs-cpu", arch=cfg.name, smoke=smoke, layers=cfg.n_layers,
+              enc_layers=cfg.n_enc_layers or None, d_model=cfg.d_model, B=c["B"],
+              prompt=c["prompt"], new_tokens=c["new"], steps_compared=f"{compared}/{len(runs[0])}",
+              max_abs_logit_diff=f"{worst:.3e}", max_abs_logit=f"{scale:.3f}",
+              rtol=c["rtol"], atol=c["atol"],
+              **({} if cfg.moe is None else dict(route_calls=len(calls_card),
+                                                 near_ties=ties, routed_differently=differ,
+                                                 route_tie=ROUTE_TIE)))
+        if compared < 1:
+            raise AssertionError(f"{arch}: no step's routes agree")
+        del on_card, on_cpu
+        torch.cuda.empty_cache()
+
+
+def families_train_card(dev) -> None:
+    """FAMILY_TRAIN: ``loss_fn(...).backward()`` (through
+    ``train_loop.value_and_grad``) on the card against the CPU with the
+    same weights and tokens: the loss within TRAIN_CARD_VS_CPU's 1e-5
+    relative, each gradient leaf within its 1e-4 of the leaf's max |.| (a
+    leaf below GRAD_NOISE of the largest: below it on both), every leaf
+    finite and live on the card; K4's backward must run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.runtime.train_loop import value_and_grad
+
+    c = TRAIN_CARD_VS_CPU
+    for arch, over, smoke, B, T in FAMILY_TRAIN:
+        cfg = get_config(arch, smoke=smoke, **over)
+        model = build_model(cfg)
+        on_card = model.init(4, device=dev)
+        on_cpu = tree_map(lambda t: t.cpu(), on_card)
+        rng = np.random.default_rng(4)
+        toks = rng.integers(0, cfg.vocab, size=(B, T + 1)).astype(np.int32)
+        frames = ((rng.standard_normal((B, cfg.enc_frames, cfg.d_model)) * 0.02)
+                  .astype(np.float32) if cfg.enc_dec else None)
+        runs = []
+        k4.flash_attention_bwd_cuda.launches = 0
+        for params, d in ((on_card, dev), (on_cpu, torch.device("cpu"))):
+            batch = {"tokens": torch.as_tensor(toks[:, :-1], device=d),
+                     "labels": torch.as_tensor(toks[:, 1:], device=d),
+                     "embeds": None if frames is None else torch.as_tensor(frames, device=d)}
+            loss, grads = value_and_grad(model.loss_fn, params, batch)
+            runs.append((float(loss), [g.cpu() for g in tree_leaves(grads)]))
+            del grads
+        bwd = k4.flash_attention_bwd_cuda.launches
+        (l_card, g_card), (l_cpu, g_cpu) = runs
+        loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+        top = max(float(b.abs().max()) for b in g_cpu)
+        worst, noise = 0.0, 0
+        for a, b in zip(g_card, g_cpu):
+            m = float(b.abs().max())
+            if m < GRAD_NOISE * top:
+                noise += 1
+                if not float(a.abs().max()) < GRAD_NOISE * top:
+                    raise AssertionError(f"{arch}: a noise leaf is {float(a.abs().max()):.3e} "
+                                         "on the card")
+                continue
+            worst = max(worst, float((a - b).abs().max()) / m)
+        live = all(bool(torch.isfinite(a).all()) for a in g_card) and all(
+            bool((a != 0).any()) for a, b in zip(g_card, g_cpu)
+            if float(b.abs().max()) >= GRAD_NOISE * top)
+        phase("families-train-card", arch=cfg.name, smoke=smoke, layers=cfg.n_layers,
+              d_model=cfg.d_model, B=B, T=T, loss_card=f"{l_card:.7f}", loss_cpu=f"{l_cpu:.7f}",
+              loss_rel_diff=f"{loss_rel:.3e}", worst_leaf_rel_diff=f"{worst:.3e}",
+              grad_leaves=len(g_card), noise_leaves=noise, all_leaves_live=live,
+              k4_bwd_launches=bwd, loss_rtol=c["loss_rtol"], grad_tol=c["grad_tol"])
+        if not loss_rel <= c["loss_rtol"]:
+            raise AssertionError(f"{arch}: card and CPU losses differ by {loss_rel:.3e}")
+        if not (live and worst <= c["grad_tol"]):
+            raise AssertionError(f"{arch}: card and CPU gradients differ by {worst:.3e} of a "
+                                 "leaf's max, or a leaf is dead or not finite")
+        has_attn = cfg.enc_dec or any(k.startswith("attn") for k in cfg.block_pattern)
+        if has_attn and bwd < k4.BWD_LAUNCHES:
+            raise AssertionError(f"{arch}: K4's backward did not run")
+        del on_card, on_cpu, runs
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2546,7 +2963,21 @@ def main() -> int:
     train_card_vs_cpu(dev)
     coded_dp_train(dev)
 
-    # 13. Every kernel of the paths.
+    # 13. The other model families (slice C3): K4 and its backward at their
+    # attention shapes, each family's serving path at its published width
+    # (K4's launches reset just before each generate run), then the card
+    # against the CPU, logits and gradients.
+    fa_family = k4_family_shapes(dev)
+    fa_bwd_family = k4_bwd_family_shape(dev)
+    family_launches = {spec["name"]: serve_family(dev, spec) for spec in FAMILY_SERVE}
+    families_card_vs_cpu(dev)
+    families_train_card(dev)
+    fa["launches_by_path"] = {"serve": fa["launches"], **family_launches}
+    fa["family_shapes"] = fa_family
+    fa_bwd["launches_by_path"] = {"train": fa_bwd["launches"]}
+    fa_bwd["family_shapes"] = [fa_bwd_family]
+
+    # 14. Every kernel of the paths.
     print(json.dumps({"kernels": [
         dict(name="coded_matmul", route="cuda",
              source="src/repro_torch/csrc/coded_matmul.cu",

@@ -18,9 +18,9 @@ from . import _device
 from .core import engine, fountain
 from .core.coded_matmul import CodedMatmulPlan
 
-__all__ = ["adamw_state_from_numpy", "dynamics_from_numpy", "fleet_tables_from_numpy",
-           "lm_params_from_numpy", "lt_code_from_arrays", "plan_from_arrays",
-           "tables_from_numpy"]
+__all__ = ["adamw_state_from_numpy", "dynamics_from_numpy", "encdec_params_from_numpy",
+           "fleet_tables_from_numpy", "lm_params_from_numpy", "lt_code_from_arrays",
+           "plan_from_arrays", "tables_from_numpy"]
 
 
 def lt_code_from_arrays(idx, mask, coef, R: int, K: int) -> fountain.LTCode:
@@ -114,26 +114,45 @@ def dynamics_from_numpy(dyn, device=None) -> dict:
 
 def lm_params_from_numpy(cfg, tree, device=None) -> dict:
     """The port's LM parameters from the reference's parameter tree
-    (``repro.models.transformer.init_lm``'s values, leaves as numpy arrays).
+    (``repro.models.transformer.init_lm``'s values, leaves as numpy arrays;
+    for an encoder-decoder ``cfg``, :func:`encdec_params_from_numpy`).
 
     The reference stacks each pattern position ``b{j}`` over a leading
     ``n_groups`` axis (layer ``g * period + j``); the port keeps one dict per
     layer in ``params["blocks"]``.  Leaves keep their dtype and layout
-    (``wq (d, hq, hd)``, ``wo (hq, hd, d)``, MLP ``x @ W``) and go to
-    ``device`` (CUDA by default)."""
+    (``wq (d, hq, hd)``, ``wo (hq, hd, d)``, MLP ``x @ W``; RG-LRU's
+    ``lam (w,)`` and ``conv (cw, w)``, sLSTM's ``r (4, H, dh, dh)``, the
+    experts' ``(E, d, f)``) and go to ``device`` (CUDA by default)."""
+    if cfg.enc_dec:
+        return encdec_params_from_numpy(cfg, tree, device)
     dev = _device.resolve(device)
-
-    def conv(node, g=None):
-        if isinstance(node, dict):
-            return {k: conv(v, g) for k, v in node.items()}
-        arr = np.asarray(node)
-        return torch.tensor(arr if g is None else arr[g], device=dev)  # a copy
-
     period, stacked = cfg.pattern_period, tree["blocks"]
-    params = {k: conv(v) for k, v in tree.items() if k != "blocks"}
-    params["blocks"] = [conv(stacked[f"b{i % period}"], i // period)
+    params = {k: _to_torch(v, dev) for k, v in tree.items() if k != "blocks"}
+    params["blocks"] = [_to_torch(stacked[f"b{i % period}"], dev, i // period)
                         for i in range(cfg.n_layers)]
     return params
+
+
+def encdec_params_from_numpy(cfg, tree, device=None) -> dict:
+    """The port's encoder-decoder parameters from the reference's tree
+    (``repro.models.encdec.init_encdec``'s values): its ``encoder`` and
+    ``decoder``, stacked over ``n_enc_layers`` and ``n_layers``, become
+    lists of per-layer dicts; leaves go to ``device`` (CUDA by default)."""
+    dev = _device.resolve(device)
+    params = {k: _to_torch(v, dev) for k, v in tree.items()
+              if k not in ("encoder", "decoder")}
+    params["encoder"] = [_to_torch(tree["encoder"], dev, i) for i in range(cfg.n_enc_layers)]
+    params["decoder"] = [_to_torch(tree["decoder"], dev, i) for i in range(cfg.n_layers)]
+    return params
+
+
+def _to_torch(node, dev, layer=None):
+    """A copy of a tree of numpy arrays on ``dev`` (entry ``layer`` of each
+    leaf's leading axis, if given)."""
+    if isinstance(node, dict):
+        return {k: _to_torch(v, dev, layer) for k, v in node.items()}
+    arr = np.asarray(node)
+    return torch.tensor(arr if layer is None else arr[layer], device=dev)
 
 
 def adamw_state_from_numpy(state, cfg=None, device=None):

@@ -7,6 +7,10 @@
 builds the model on the card (``--device``, default ``cuda``) with the port's
 own random init from ``--seed``, serves the request batches and prints the
 tokens per second.  ``--smoke --device cpu`` runs the smoke config on the CPU.
+Every arch of the registry serves but the encoder-decoder (whisper), whose
+encoder reads audio frames this launcher has none of: it raises
+``ValueError`` (the reference's launcher fails there too); serve it through
+``ServeEngine.generate(tokens, n_new, embeds=frames)``.
 """
 
 import argparse
@@ -39,8 +43,13 @@ def main(argv=None):
     from repro_torch.models import build_model
     from repro_torch.runtime.serve_loop import CCPDispatcher, ServeEngine
 
-    dev = _device.resolve(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.enc_dec:
+        raise ValueError(f"{args.arch} is an encoder-decoder model: its encoder needs "
+                         "(B, enc_frames, d_model) frames, which this launcher has no "
+                         "source of; serve it with ServeEngine.generate(tokens, n_new, "
+                         "embeds=frames)")
+    dev = _device.resolve(args.device)
     model = build_model(cfg)
     params = model.init(args.seed, device=dev)
     engine = ServeEngine(model, params, max_len=args.max_len, device=dev)

@@ -8,6 +8,9 @@ kernel takes the query offset and valid length as static arguments; K4 takes
 them at run time, so on the card the no-cache forward, prefill, decode and
 the ring cache all run on it, computing what the reference computes there.
 
+``cross_attention`` (whisper's decoder) is non-causal over the encoder's
+keys and values, which ``cross_kv`` projects once at prefill.
+
 The cache of one layer is ``{"k": (B, Hkv, Tmax, hd), "v": ..., "pos": int}``
 (``"ring": True`` for a bounded sliding-window buffer).  The reference's
 cache is immutable and its ``pos`` a traced scalar; here the buffers are
@@ -148,7 +151,37 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     }
 
 
-def cross_attention(*args, **kwargs):
-    raise NotImplementedError(
-        "cross_attention (whisper's encoder-decoder) waits for the enc-dec slice of "
-        "the port (C3, the other model families, in ROADMAP queue 1)")
+def init_cross_attention(pb: ParamBuilder, cfg: ModelConfig) -> Dict[str, Any]:
+    return init_attention(pb, cfg)
+
+
+def cross_kv(params, enc: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The cross-attention's keys and values of the encoder output ``enc``
+    (B, Tk, D): {"k", "v"} (B, Hkv, Tk, hd)."""
+    k, v = _heads(enc, params["wk"]), _heads(enc, params["wv"])
+    if "bk" in params:
+        k = k + params["bk"].to(k.dtype)[None, :, None, :]
+        v = v + params["bv"].to(v.dtype)[None, :, None, :]
+    return {"k": k, "v": v}
+
+
+def cross_attention(
+    params: Dict[str, Any],
+    x: torch.Tensor,                      # (B, Tq, D) decoder states
+    enc: Optional[torch.Tensor],          # (B, Tk, D) encoder output
+    cfg: ModelConfig,
+    *,
+    use_kernel: Optional[bool] = None,
+    kv: Optional[Dict[str, torch.Tensor]] = None,  # precomputed {"k","v"}
+) -> torch.Tensor:
+    """Non-causal attention of the decoder states over the encoder output,
+    no RoPE; ``kv`` (from :func:`cross_kv`) spares the projection of
+    ``enc``."""
+    q = _heads(x, params["wq"])
+    if "bq" in params:
+        q = q + params["bq"].to(q.dtype)[None, :, None, :]
+    if kv is None:
+        kv = cross_kv(params, enc)
+    o = flash_attention(q, kv["k"].to(x.dtype), kv["v"].to(x.dtype), causal=False,
+                        use_kernel=use_kernel)
+    return _out(params, o)

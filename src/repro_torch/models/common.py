@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Callable, List, Optional, Tuple
 
 import torch
@@ -71,6 +72,10 @@ class ParamBuilder:
 
     def ones(self, shape) -> torch.Tensor:
         return torch.ones(shape, dtype=self.param_dtype, device=self.device)
+
+    def const(self, value) -> torch.Tensor:
+        """A fixed value (no draw), in the param dtype on the device."""
+        return torch.as_tensor(value).to(device=self.device, dtype=self.param_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -154,3 +159,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (B, H, T, D) with D even; positions: (B, T) or (T,) absolute.
     Half-split rotation, computed in fp32."""
     return rotate(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def sinusoidal_positions(t: int, d: int, max_ts: float = 10000.0,
+                         device=None) -> torch.Tensor:
+    """Classic sin/cos table (whisper encoder): (t, d) float32."""
+    pos = torch.arange(t, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(-math.log(max_ts)
+                    * torch.arange(0, d, 2, dtype=torch.float32, device=device) / d)
+    pe = torch.zeros((t, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe

@@ -1,5 +1,6 @@
 """Public model API: build_model(cfg) -> Model with init/loss/prefill/decode
-(port of ``repro.models.model``, decoder-only models)."""
+(port of ``repro.models.model``): decoder-only models over
+``transformer.py`` and whisper's encoder-decoder over ``encdec.py``."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ from typing import Any, Callable, Optional, Union
 import torch
 
 from .. import _device
+from . import encdec as encdec_mod
 from . import transformer as tf_mod
 from .config import ModelConfig
 
@@ -18,6 +20,12 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return (lse - gold).mean()
+
+
+def _generator(seed: Union[int, torch.Generator], device) -> torch.Generator:
+    if isinstance(seed, torch.Generator):
+        return seed
+    return torch.Generator(device=_device.resolve(device)).manual_seed(int(seed))
 
 
 @dataclasses.dataclass
@@ -41,16 +49,14 @@ def build_model(cfg: ModelConfig, *, use_kernel: Optional[bool] = None,
     """``use_kernel`` is the reference's ``use_pallas``: None takes the
     tensors' device (K4 on the card, the plain version on the CPU).
     ``remat``/``remat_policy`` apply to ``loss_fn``, as in the reference
-    (``transformer.decoder_stack``)."""
-    tf_mod._check_ported(cfg)
+    (``transformer.decoder_stack``; the encoder-decoder, like the
+    reference's, takes neither)."""
     cdt = getattr(torch, cfg.compute_dtype)
+    if cfg.enc_dec:
+        return _build_encdec(cfg, use_kernel)
 
     def init(seed: Union[int, torch.Generator] = 0, device=None):
-        if isinstance(seed, torch.Generator):
-            gen = seed
-        else:
-            gen = torch.Generator(device=_device.resolve(device)).manual_seed(int(seed))
-        return tf_mod.init_lm(gen, cfg)
+        return tf_mod.init_lm(_generator(seed, device), cfg)
 
     def forward(params, tokens, embeds=None):
         logits, _, _ = tf_mod.lm_forward(params, tokens, cfg, embeds=embeds,
@@ -83,5 +89,47 @@ def build_model(cfg: ModelConfig, *, use_kernel: Optional[bool] = None,
     def init_cache(batch, max_len, dtype=None, device=None):
         return tf_mod.init_lm_caches(cfg, batch, max_len, dtype or cdt,
                                      ring_local=ring_local, device=_device.resolve(device))
+
+    return Model(cfg, init, loss_fn, forward, prefill, decode_step, init_cache)
+
+
+def _build_encdec(cfg: ModelConfig, use_kernel: Optional[bool]) -> Model:
+    """Whisper: ``embeds`` (B, T_enc, D) are the stub frames the encoder
+    reads.  The cache is {"dec": per-layer KV caches, "cross_kv": per-layer
+    cross-attention K/V}; ``cross_kv`` is None until the prefill projects
+    the encoder output once (the reference allocates zeros there)."""
+
+    def init(seed: Union[int, torch.Generator] = 0, device=None):
+        return encdec_mod.init_encdec(_generator(seed, device), cfg)
+
+    def forward(params, tokens, embeds=None):
+        enc = encdec_mod.encode(params, embeds, cfg, use_kernel=use_kernel)
+        logits, _ = encdec_mod.decode(params, tokens, enc, cfg, use_kernel=use_kernel)
+        return logits
+
+    def loss_fn(params, batch):
+        logits = forward(params, batch["tokens"], batch["embeds"])
+        return cross_entropy(logits, batch["labels"])
+
+    def prefill(params, tokens, cache, embeds=None):
+        enc = encdec_mod.encode(params, embeds, cfg, use_kernel=use_kernel)
+        # project the encoder output through every layer's cross-attn K/V
+        # ONCE: the decode steps reuse it
+        cross = encdec_mod.compute_cross_kv(params, enc, cfg)
+        logits, dec_c = encdec_mod.decode(params, tokens, enc, cfg, cache["dec"],
+                                          use_kernel=use_kernel, last_only=True,
+                                          cross_kv=cross)
+        return logits[:, -1], dict(cache, dec=dec_c, cross_kv=cross)
+
+    def decode_step(params, tokens, cache):
+        logits, dec_c = encdec_mod.decode(params, tokens, None, cfg, cache["dec"],
+                                          use_kernel=use_kernel, cross_kv=cache["cross_kv"])
+        return logits[:, -1], dict(cache, dec=dec_c)
+
+    def init_cache(batch, max_len, dtype=None, device=None):
+        cdt = dtype or getattr(torch, cfg.compute_dtype)
+        return {"dec": encdec_mod.init_dec_caches(cfg, batch, max_len, cdt,
+                                                  _device.resolve(device)),
+                "cross_kv": None}
 
     return Model(cfg, init, loss_fn, forward, prefill, decode_step, init_cache)

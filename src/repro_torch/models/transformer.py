@@ -8,8 +8,10 @@ PyTorch runs eagerly, so the port keeps one parameter dict per layer in
 and loops over them; ``interop.lm_params_from_numpy`` unstacks the
 reference's tree into this form.  Caches are a list of per-layer dicts.
 
-This slice ports the attention blocks (``attn``, ``attn_local``,
-``attn_global``) with a dense MLP; the recurrent mixers and MoE raise.
+Every mixer of the reference is here: attention (``attn``,
+``attn_local``, ``attn_global``), recurrentgemma's RG-LRU (``rglru``) and
+xLSTM's cells (``mlstm``, ``slstm``), whose per-layer cache is their
+recurrent state; the MLP is dense or MoE (``cfg.moe``).
 
 ``remat`` (training, no cache) recomputes each layer in the backward
 (``torch.utils.checkpoint``, non-reentrant): ``remat_policy="full"`` keeps
@@ -30,34 +32,30 @@ from torch.utils import checkpoint as ckpt
 
 from . import attention as attn_mod
 from . import mlp as mlp_mod
+from . import moe as moe_mod
+from . import rglru as rglru_mod
+from . import xlstm as xlstm_mod
 from .common import ParamBuilder, layer_norm, rms_norm, softcap
 from .config import ModelConfig
 
 ATTN_KINDS = ("attn", "attn_local", "attn_global")
-# Block kinds and features of the reference that later slices port.
-NOT_PORTED = {
-    "rglru": "recurrentgemma's RG-LRU block",
-    "mlstm": "xLSTM's mLSTM block",
-    "slstm": "xLSTM's sLSTM block",
+
+MIXER_INIT = {
+    "attn": attn_mod.init_attention,
+    "attn_local": attn_mod.init_attention,
+    "attn_global": attn_mod.init_attention,
+    "rglru": rglru_mod.init_rglru_block,
+    "mlstm": xlstm_mod.init_mlstm,
+    "slstm": xlstm_mod.init_slstm,
 }
 
 
-def _refuse(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: it waits for slice C3 of the port (the other model "
-        "families, ROADMAP queue 1)")
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    for kind in cfg.block_pattern:
-        if kind in NOT_PORTED:
-            _refuse(NOT_PORTED[kind])
-        if kind not in ATTN_KINDS:
-            raise ValueError(kind)
-    if cfg.moe is not None:
-        _refuse("the MoE block")
-    if cfg.enc_dec:
-        _refuse("whisper's encoder-decoder model")
+def refuse_tf32(cdt: torch.dtype, weight: torch.Tensor) -> None:
+    """An fp32 model on the card must not run its products in TF32."""
+    if cdt == torch.float32 and torch.backends.cuda.matmul.allow_tf32 and weight.is_cuda:
+        raise RuntimeError("an fp32 model on the card needs full-fp32 products: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False "
+                           "(_device.full_fp32_matmuls)")
 
 
 def block_kinds(cfg: ModelConfig) -> List[str]:
@@ -82,12 +80,13 @@ def _init_norm(pb: ParamBuilder, cfg: ModelConfig) -> Dict[str, Any]:
 def init_block(pb: ParamBuilder, cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     p: Dict[str, Any] = {
         "norm1": _init_norm(pb, cfg),
-        "mixer": attn_mod.init_attention(pb, cfg),
+        "mixer": MIXER_INIT[kind](pb, cfg),
     }
-    has_mlp = cfg.d_ff > 0
+    has_mlp = cfg.d_ff > 0 or cfg.moe is not None
     if has_mlp:
         p["norm2"] = _init_norm(pb, cfg)
-        p["mlp"] = mlp_mod.init_mlp(pb, cfg)
+        p["mlp"] = (moe_mod.init_moe(pb, cfg) if cfg.moe is not None
+                    else mlp_mod.init_mlp(pb, cfg))
     if cfg.post_block_norm:
         p["post_norm1"] = _init_norm(pb, cfg)
         if has_mlp:
@@ -105,18 +104,28 @@ def apply_block(
     use_kernel: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], torch.Tensor]:
     """Returns (x', cache', aux_loss)."""
-    if kind not in ATTN_KINDS:
-        _refuse(NOT_PORTED.get(kind, kind))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = _norm(cfg, params["norm1"], x)
-    y, cache = attn_mod.attention(params["mixer"], h, cfg, local=kind == "attn_local",
-                                  cache=cache, use_kernel=use_kernel)
+    if kind in ATTN_KINDS:
+        y, cache = attn_mod.attention(params["mixer"], h, cfg, local=kind == "attn_local",
+                                      cache=cache, use_kernel=use_kernel)
+    elif kind == "rglru":
+        y, cache = rglru_mod.rglru_block(params["mixer"], h, cfg, cache)
+    elif kind == "mlstm":
+        y, cache = xlstm_mod.mlstm(params["mixer"], h, cfg, cache)
+    elif kind == "slstm":
+        y, cache = xlstm_mod.slstm(params["mixer"], h, cfg, cache)
+    else:
+        raise ValueError(kind)
     if cfg.post_block_norm:
         y = _norm(cfg, params["post_norm1"], y)
     x = x + y
     if "mlp" in params:
         h = _norm(cfg, params["norm2"], x)
-        y = mlp_mod.mlp(params["mlp"], h, cfg)
+        if cfg.moe is not None:
+            y, aux = moe_mod.moe_block(params["mlp"], h, cfg)
+        else:
+            y = mlp_mod.mlp(params["mlp"], h, cfg)
         if cfg.post_block_norm:
             y = _norm(cfg, params["post_norm2"], y)
         x = x + y
@@ -188,7 +197,6 @@ def decoder_stack(
 def init_lm(generator: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     """Full LM init on the generator's device (the reference's distributions,
     not its numbers)."""
-    _check_ported(cfg)
     pb = ParamBuilder(generator, param_dtype=getattr(torch, cfg.param_dtype))
     params: Dict[str, Any] = {"embed": pb.normal((cfg.vocab, cfg.d_model), stddev=0.02)}
     params["blocks"] = init_decoder(pb, cfg)
@@ -217,11 +225,7 @@ def lm_forward(
     prefill fast path: at phi4-mini's vocab of 200064 a (4, 1023) prompt's
     full logits would be 3.3 GB of fp32)."""
     cdt = getattr(torch, cfg.compute_dtype)
-    if (cdt == torch.float32 and torch.backends.cuda.matmul.allow_tf32
-            and params["embed"].is_cuda):
-        raise RuntimeError("an fp32 model on the card needs full-fp32 products: set "
-                           "torch.backends.cuda.matmul.allow_tf32 = False "
-                           "(_device.full_fp32_matmuls)")
+    refuse_tf32(cdt, params["embed"])
     parts = []
     if embeds is not None:
         parts.append(embeds.to(cdt))
@@ -246,12 +250,22 @@ def lm_forward(
 
 def init_lm_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                    ring_local: bool = False, device=None) -> List[Dict[str, Any]]:
-    """One cache per layer.  ``ring_local``: local (sliding-window) layers
-    get a bounded ring buffer of exactly ``window`` slots instead of a
-    full-context buffer (decode only; see attention.py)."""
+    """One cache per layer: a KV cache for attention, the recurrent state
+    (fp32, O(1) in ``max_len``) for ``rglru``, ``mlstm`` and ``slstm``.
+    ``ring_local``: local (sliding-window) layers get a bounded ring buffer
+    of exactly ``window`` slots instead of a full-context buffer (decode
+    only; see attention.py)."""
     caches = []
     for kind in block_kinds(cfg):
-        if (ring_local and kind == "attn_local" and cfg.window is not None
+        if kind == "rglru":
+            c = rglru_mod.init_rglru_state(cfg, batch, device)
+        elif kind == "mlstm":
+            c = xlstm_mod.init_mlstm_state(cfg, batch, device)
+        elif kind == "slstm":
+            c = xlstm_mod.init_slstm_state(cfg, batch, device)
+        elif kind not in ATTN_KINDS:
+            raise ValueError(kind)
+        elif (ring_local and kind == "attn_local" and cfg.window is not None
                 and cfg.window < max_len):
             c = attn_mod.init_cache(cfg, batch, cfg.window, dtype, device)
             c["ring"] = True

@@ -243,6 +243,15 @@ FA_CASES = [
     (1, 4, 4, 70, 200, 256, True, 32, None, 5, 75),        # head dim 256
     (1, 24, 8, 100, 256, 128, True, None, None, 0, 100),   # phi4-mini prefill
     (2, 24, 8, 1, 2048, 128, True, None, None, 1040, 1041),  # phi4-mini decode
+    # slice C3's shapes: recurrentgemma's MQA (10/1 heads, D 256) with a
+    # window, prefill and a decode step in a buffer; whisper's non-causal
+    # encoder (1500 keys: a tail of 28 past the last 64-key tile) and its
+    # cross-attention decode over 1500 keys; moonshot's MHA prefill
+    (1, 10, 1, 300, 300, 256, True, 64, None, 0, None),
+    (2, 10, 1, 1, 512, 256, True, 64, None, 400, 401),
+    (2, 4, 4, 1500, 1500, 64, False, None, None, 0, None),
+    (4, 20, 20, 1, 1500, 64, False, None, None, 0, None),
+    (1, 16, 16, 200, 256, 128, True, None, None, 0, 200),
 ]
 
 
@@ -964,6 +973,7 @@ FA_BWD_CASES = [
     (1, 24, 8, 256, 256, 128, True, None, None, 0, None, "wgmma"),
     (2, 6, 2, 70, 160, 128, True, None, None, 40, 101, "wgmma"),  # tk_valid inside a tile
     (1, 4, 2, 50, 50, 30, True, None, None, 0, None, "cuda-cores"),  # rows unaligned
+    (1, 10, 1, 256, 256, 256, True, 64, None, 0, None, "cuda-cores"),  # recurrentgemma's heads
 ]
 
 
@@ -1110,3 +1120,75 @@ def test_train_step_on_the_card_matches_the_cpu(card, arch):
         metrics.append(m)
     for key in ("loss", "grad_norm"):
         np.testing.assert_allclose(float(metrics[0][key]), float(metrics[1][key]), rtol=1e-5)
+
+
+FAMILIES = ["recurrentgemma-2b", "xlstm-350m", "moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b",
+            "whisper-large-v3"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_smoke_model_on_the_card_matches_the_cpu(card, arch):
+    """Slice C3's families at their smoke configs with the same weights on
+    the card (K4 and its backward, cuBLAS) and on the CPU (the plain
+    versions): the forward's logits, a prefill and teacher-forced decode
+    within 1e-4, and the loss within 1e-5 relative and each gradient leaf
+    within 1e-4 of its max |.|."""
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg)
+    on_cpu = model.init(0, device="cpu")
+    on_card = tree_map(lambda p: p.to(card), on_cpu)
+    rng = np.random.default_rng(1)
+    tok = rng.integers(0, cfg.vocab, size=(2, 12)).astype(np.int32)
+    frames = (rng.standard_normal((2, cfg.enc_frames, cfg.d_model)).astype(np.float32) * 0.02
+              if cfg.enc_dec else None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = []
+    for params, dev in ((on_card, card), (on_cpu, torch.device("cpu"))):
+        emb = None if frames is None else torch.as_tensor(frames, device=dev)
+        t = torch.as_tensor(tok, device=dev)
+        with torch.no_grad():
+            logits = [model.forward(params, t, emb)[:, -1]]
+            cache = model.init_cache(2, 16, device=dev)
+            step, cache = model.prefill(params, t[:, :8], cache, emb)
+            logits.append(step)
+            for i in range(8, 12):
+                step, cache = model.decode_step(params, t[:, i:i + 1], cache)
+                logits.append(step)
+        loss, grads = train_loop.value_and_grad(
+            model.loss_fn, params, {"tokens": t[:, :-1], "labels": t[:, 1:], "embeds": emb})
+        runs.append(([x.cpu() for x in logits], float(loss),
+                     [g.cpu() for g in tree_leaves(grads)]))
+    (lg_card, l_card, g_card), (lg_cpu, l_cpu, g_cpu) = runs
+    for a, b in zip(lg_card, lg_cpu):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    top = max(float(b.abs().max()) for b in g_cpu)
+    for a, b in zip(g_card, g_cpu):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= max(1e-4 * float(b.abs().max()), 1e-6 * top)
+
+
+@pytest.mark.gpu
+def test_moe_combine_on_the_card_is_bitwise_repeatable(card):
+    """The MoE block on the card, at moonshot's smoke width with tokens
+    dropped at capacity: two runs bitwise equal (the combine reads each
+    token's slots and sums in a fixed order, no atomics), and within 1e-5
+    of the CPU."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    cfg = get_config("moonshot-v1-16b-a3b", smoke=True)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=1.0))
+    from repro_torch.models.common import ParamBuilder
+    params = moe.init_moe(ParamBuilder(torch.Generator().manual_seed(0)), cfg)
+    x = torch.randn((8, 64, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    on_card = {k: v.to(card) for k, v in params.items()}
+    a, aux_a = moe.moe_block(on_card, x.to(card), cfg)
+    b, aux_b = moe.moe_block(on_card, x.to(card), cfg)
+    ref, aux_ref = moe.moe_block(params, x, cfg)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    torch.testing.assert_close(a.cpu(), ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(aux_a.cpu(), aux_ref, rtol=1e-5, atol=1e-6)

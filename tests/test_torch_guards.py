@@ -64,6 +64,17 @@ assert len(out) == 3 and all(r.shape == (2, 3) for r in out), out
 import numpy as np
 from repro_torch.configs import get_config
 from repro_torch.models import build_model
+from repro_torch.runtime.serve_loop import ServeEngine
+for arch in ("recurrentgemma-2b", "xlstm-350m", "moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b",
+             "whisper-large-v3"):
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg)
+    tok = np.random.default_rng(1).integers(0, cfg.vocab, size=(2, 6)).astype(np.int32)
+    frames = (np.random.default_rng(2).standard_normal((2, cfg.enc_frames, cfg.d_model))
+              .astype(np.float32) * 0.02 if cfg.enc_dec else None)
+    eng = ServeEngine(model, model.init(0, device="cpu"), max_len=16, device="cpu")
+    out = eng.generate(tok, n_new=3, embeds=frames)
+    assert out.shape == (2, 3) and out.min() >= 0 and out.max() < cfg.vocab, (arch, out)
 from repro_torch.optim import adamw
 from repro_torch.runtime.train_loop import make_coded_train_step, make_train_step
 cfg = get_config("mistral-nemo-12b", smoke=True)
@@ -96,7 +107,8 @@ def test_chip_smoke_and_port_sources_name_no_jax():
     names = {f.relative_to(ROOT / "src" / "repro_torch").as_posix() for f in files[:-1]}
     assert {"optim/adamw.py", "data/pipeline.py", "runtime/train_loop.py",
             "core/gradient_coding.py", "launch/train.py",
-            "kernels/flash_attention/autograd.py"} <= names
+            "kernels/flash_attention/autograd.py", "models/rglru.py", "models/xlstm.py",
+            "models/moe.py", "models/encdec.py"} <= names
     for f in files:
         for line in f.read_text().splitlines():
             words = line.split()

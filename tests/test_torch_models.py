@@ -3,8 +3,10 @@ MLP, the attention block (no cache, KV cache, ring cache) and the whole
 decoder-only model against the JAX reference on the same numpy inputs and
 the reference's own weights (``interop.lm_params_from_numpy``), on the CPU,
 where attention takes K4's plain version.  Also the copied configs, the
-parameter counts, the init distributions and the families that later
-slices port.
+parameter counts, the init distributions, and every arch of the registry
+building and running (the other families' parity is in
+tests/test_torch_recurrent.py, test_torch_moe.py, test_torch_encdec.py and
+test_torch_families.py).
 
 Tolerances: the element-wise ops and RoPE rtol/atol 1e-6 (the same fp32
 formula; transcendental functions of two libraries differ by an ulp or
@@ -170,8 +172,10 @@ def test_attention_block_matches_reference(bias, local, softcap):
         _close(yt, yj)
     with pytest.raises(ValueError, match="decode"):
         attn_pt.attention(pt, torch.as_tensor(x[:, :2]), cp, local=True, cache=rp)
-    with pytest.raises(NotImplementedError, match="enc-dec slice"):
-        attn_pt.cross_attention(pt, torch.as_tensor(x), torch.as_tensor(x), cp)
+    # Cross-attention (whisper's decoder) of 3 queries over these 10 states.
+    xq = np.random.default_rng(3).standard_normal((2, 3, 32)).astype(np.float32)
+    _close(attn_pt.cross_attention(pt, torch.as_tensor(xq), torch.as_tensor(x), cp),
+           attn_jax.cross_attention(params, jnp.asarray(xq), jnp.asarray(x), cj))
 
 
 # --- whole models -------------------------------------------------------------
@@ -286,9 +290,26 @@ def test_init_moments_match_reference():
         assert abs(float(g.std()) - sd) <= 5 * sd * (1.0 / n) ** 0.5, path
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-350m", "moonshot-v1-16b-a3b",
-                                  "qwen3-moe-235b-a22b", "whisper-large-v3"])
-def test_unported_families_raise(arch):
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_arch_builds_and_runs(arch):
+    """Every arch of the registry builds in the port and runs its forward,
+    loss, prefill and decode step at its smoke config, with finite logits
+    of the reference's shapes."""
     cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="slice"):
-        build_model(cfg)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    rng = np.random.default_rng(7)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(2, 6)).astype(np.int32))
+    emb = None
+    if cfg.frontend == "audio_stub":
+        emb = torch.as_tensor(rng.standard_normal((2, cfg.enc_frames, cfg.d_model)) * 0.02,
+                              dtype=torch.float32)
+    prefix = 0 if emb is None or cfg.enc_dec else emb.shape[1]
+    logits = model.forward(params, toks, emb)
+    assert logits.shape == (2, prefix + 6, cfg.vocab) and bool(torch.isfinite(logits).all())
+    loss = model.loss_fn(params, {"tokens": toks, "labels": toks, "embeds": emb})
+    assert bool(torch.isfinite(loss)) and float(loss) > 0
+    cache = model.init_cache(2, 16, device="cpu")
+    last, cache = model.prefill(params, toks[:, :-1], cache, emb)
+    step, cache = model.decode_step(params, toks[:, -1:], cache)
+    assert last.shape == step.shape == (2, cfg.vocab) and bool(torch.isfinite(step).all())
