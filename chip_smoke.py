@@ -21,7 +21,12 @@ LM serving: phi4-mini-3.8b at its full published size through
 replicas and the card against the CPU; LM training: phi4-mini at full width
 and 8 layers through ``launch/train``, every attention's forward on K4 and
 its backward on K4's backward kernel, then the card against the CPU and
-coded data parallelism; the other model families: recurrentgemma-2b,
+coded data parallelism, training saved mid-run and resumed through
+``launch/train --ckpt/--resume`` (phi4-mini at full width, 2 layers: the
+resumed step bitwise the uninterrupted one's), and the roofline of one
+training step and one decode step (``utils.trace.StepCosts`` against the
+H100's peaks in ``utils.roofline``, beside what cuBLAS and a copy reach on
+the card); the other model families: recurrentgemma-2b,
 xlstm-350m, whisper-large-v3 and moonshot-v1-16b-a3b (16 of 48 layers)
 served at their published widths, K4 at their attention shapes, and each
 family's logits and gradients on the card against the CPU), checks the
@@ -43,10 +48,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# Published peaks of one H100 SXM (NVIDIA data sheet), for the bounds.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
-TF32_FLOPS = 495e12  # tensor cores, dense
+# Published peaks of one H100 SXM (NVIDIA data sheet), for the bounds:
+# HBM3's rate, the CUDA cores' fp32 and the tensor cores' dense TF32.
+from repro_torch.utils.roofline import FP32_FLOPS, TF32_FLOPS  # noqa: E402
+from repro_torch.utils.roofline import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
 
 # The sweep shapes of tests/test_kernels_coded_matmul.py: (R, K, bm, k, n).
 SWEEP = [(4, 2, 8, 16, 16), (6, 3, 16, 64, 32), (8, 4, 8, 128, 128),
@@ -262,6 +267,7 @@ def kernel_at_main_shape(dev) -> dict:
     import torch
     from repro_torch.core import coded_matmul as cm
     from repro_torch.kernels.coded_matmul import coded_matmul_cuda, coded_matmul_ref
+    from repro_torch.kernels.coded_matmul.kernel import coded_matmul_costs
     from repro_torch.kernels.coded_matmul.ref import lt_encode_ref
 
     plan = cm.plan_coded_matmul(rows=MAIN["rows"], n_shards=MAIN["n_shards"],
@@ -296,9 +302,9 @@ def kernel_at_main_shape(dev) -> dict:
     # and, for comparison, the product plus this plan's nonzero-weight
     # encode FMAs in fp32 on the CUDA cores.
     nnz = int((w != 0).sum())
-    nbytes = sum(t.numel() * t.element_size() for t in (a, x, idx, w, out))
-    ops = 2.0 * C * bm * k * n + 2.0 * nnz * bm * k
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 3 * 2.0 * C * bm * k * n / TF32_FLOPS * 1e3
+    products, nbytes = coded_matmul_costs(a.shape[0] // bm, bm, k, n, C, _d, a.element_size())
+    ops = products + 2.0 * nnz * bm * k
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 3 * products / TF32_FLOPS * 1e3
     bound_ms = max(t_bytes, t_ops)
     bound_fp32 = max(t_bytes, ops / FP32_FLOPS * 1e3)
     phase("k1-main-shape", A=f"{MAIN['rows']}x{k}", X=f"{k}x{n}", C=C, bm=bm,
@@ -503,6 +509,7 @@ def k1_second_shape(dev) -> None:
     import torch
     from repro_torch.core import fountain
     from repro_torch.kernels.coded_matmul import coded_matmul_cuda, coded_matmul_ref
+    from repro_torch.kernels.coded_matmul.kernel import coded_matmul_costs
     from repro_torch.kernels.coded_matmul.ref import lt_encode_ref
 
     R, K, bm, k, n = (K1_SECOND[key] for key in ("R", "K", "bm", "k", "n"))
@@ -524,9 +531,9 @@ def k1_second_shape(dev) -> None:
     ms = time_ms(lambda: coded_matmul_cuda(a, x, idx, w, bm), 10)
     plain_ms = time_ms(lambda: coded_matmul_ref(a, x, idx, w, bm), 5)
     lib_ms = time_ms(lambda: torch.matmul(a_enc, x), 10)
-    nbytes = sum(t.numel() * t.element_size() for t in (a, x, idx, w, out))
+    products, nbytes = coded_matmul_costs(R, bm, k, n, C, idx.shape[1], a.element_size())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 3 * 2.0 * C * bm * k * n / TF32_FLOPS * 1e3
+    t_ops = 3 * products / TF32_FLOPS * 1e3
     bound_ms = max(t_bytes, t_ops)
     phase("k1-second-shape", A=f"{R * bm}x{k}", X=f"{k}x{n}", R=R, K=K, C=C, bm=bm,
           max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}", k1_ms=f"{ms:.4f}",
@@ -845,9 +852,10 @@ def rateless_data_plane(dev) -> dict:
     from repro_torch.core import decode, fountain
     from repro_torch.kernels.coded_matmul.ref import lt_encode_ref
     from repro_torch.kernels.lt_decode import (lt_decode, lt_decode_code, lt_decode_plan_cuda,
-                                               lt_decode_ref, peel_round_ref, plan_program,
-                                               read_program)
+                                               lt_decode_ref, peel_round_ref, plan_program)
+    from repro_torch.kernels.lt_decode.schedule import program_costs
     from repro_torch.kernels.lt_encode import lt_encode_code, lt_encode_cuda
+    from repro_torch.kernels.lt_encode.kernel import lt_encode_costs
 
     gen = torch.Generator(device=dev).manual_seed(4)
     runs = []
@@ -907,12 +915,12 @@ def rateless_data_plane(dev) -> dict:
         a2 = a.view(R, bm * cols)
         k2_lib = time_ms(lambda: torch.mm(G, a2), 10)
         nnz = int((w != 0).sum())
-        k2_bytes = a.numel() * 4 + idx.numel() * 8 + coded.numel() * 4
-        k2_bound = max(k2_bytes / HBM_BYTES_PER_S, 2.0 * nnz * bm * cols / FP32_FLOPS) * 1e3
+        k2_ops, k2_bytes = lt_encode_costs(R, bm, cols, idx.shape[0], idx.shape[1], nnz,
+                                           a.element_size())
+        k2_bound = max(k2_bytes / HBM_BYTES_PER_S, k2_ops / FP32_FLOPS) * 1e3
         k2 = dict(ms=k2_ms, plain_ms=k2_plain, library_ms=k2_lib, bound_ms=k2_bound,
                   max_abs_err=k2_err, bound_by="bytes"
-                  if k2_bytes / HBM_BYTES_PER_S >= 2.0 * nnz * bm * cols / FP32_FLOPS
-                  else "operations")
+                  if k2_bytes / HBM_BYTES_PER_S >= k2_ops / FP32_FLOPS else "operations")
         phase("k2-rateless-shape", R=R, C=R + K, bm=bm, cols=cols, nnz=nnz,
               k2_ms=f"{k2_ms:.4f}", bound_ms=f"{k2_bound:.4f}",
               share_of_bound=f"{k2_bound / k2_ms:.3f}", plain_ms=f"{k2_plain:.4f}",
@@ -1000,16 +1008,9 @@ def rateless_data_plane(dev) -> dict:
                      for s in rnd.nbr_idx[rnd.nbr_coef != 0]}
             round_bytes = (len(read) + plan.n_peeled) * blk + (
                 12 + 8 * plan.order_nbr_idx.shape[1]) * plan.n_peeled
-            # The plan count: the inputs read once (each entry's coded block,
-            # the direct-filled blocks its neighbours and padding lists name)
-            # and each recovered block written once; a block the launch
-            # recovers and reads again is an intermediate.  Plus the program.
-            direct = set(plan.direct_src.tolist())
-            named = {int(b) for r in read_program(words) for b in r.padding}
-            named |= {s for kind, s in read if kind == "s"}
-            inputs = len({c for kind, c in read if kind == "c"}) + len(named & direct)
-            k3_bytes = (inputs + plan.n_peeled) * blk + words.size * 4
-            k3_ops = 2.0 * n_nbr * bm * cols + plan.n_peeled * bm * cols
+            # The plan count (schedule.program_costs): the inputs read once
+            # and each recovered block written once, plus the program.
+            k3_ops, k3_bytes = program_costs(words, bm * cols, a.element_size())
             k3_bound = max(k3_bytes / HBM_BYTES_PER_S, k3_ops / FP32_FLOPS) * 1e3
             round_bound = max(round_bytes / HBM_BYTES_PER_S, k3_ops / FP32_FLOPS) * 1e3
             k3 = dict(ms=k3_ms, plain_ms=k3_plain, library_ms=k3_lib, bound_ms=k3_bound,
@@ -1536,16 +1537,6 @@ def check_flash_attention_against_plain(dev) -> None:
     torch.cuda.empty_cache()
 
 
-def _valid_pairs(Tq, q_offset, tk_valid, causal, window) -> int:
-    """(query, key) pairs a call attends over: key j < tk_valid, j <= the
-    query's position if causal, position - j < window if windowed."""
-    import numpy as np
-    pos = q_offset + np.arange(Tq, dtype=np.int64)
-    hi = np.minimum(pos + 1, tk_valid) if causal else np.full(Tq, tk_valid, np.int64)
-    lo = np.zeros(Tq, np.int64) if window is None else np.maximum(pos - window + 1, 0)
-    return int(np.clip(hi - lo, 0, None).sum())
-
-
 def k4_at_shape(dev, gen, label: str, B, Hq, Hkv, Tq, buf, D, causal, window, off, tkv,
                 precision: bool = False) -> dict:
     """K4 at one shape, f32, with what lies in the buffer beyond ``tkv``
@@ -1565,7 +1556,7 @@ def k4_at_shape(dev, gen, label: str, B, Hq, Hkv, Tq, buf, D, causal, window, of
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention_cuda
-    from repro_torch.kernels.flash_attention.kernel import split_plan
+    from repro_torch.kernels.flash_attention.kernel import attention_costs, split_plan
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     q, k, v = _qkv(dev, gen, B, Hq, Hkv, Tq, buf, D, torch.float32)
@@ -1603,9 +1594,8 @@ def k4_at_shape(dev, gen, label: str, B, Hq, Hkv, Tq, buf, D, causal, window, of
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, *kv, attn_mask=mask,
                                                              enable_gqa=True),
                      20 if Tq > 1 else 200)
-    ops = 4.0 * B * Hq * _valid_pairs(Tq, off, tkv, causal, window) * D
-    keys = tkv - (0 if window is None else max(0, off - window + 1))
-    nbytes = 2 * q.numel() * 4 + 2 * B * Hkv * keys * D * 4
+    ops, nbytes = attention_costs(B, Hq, Hkv, Tq, D, q_offset=off, tk_valid=tkv,
+                                  causal=causal, window=window, elem=q.element_size())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_fp32 = ops / FP32_FLOPS * 1e3
     t_ops = 3 * ops / TF32_FLOPS * 1e3
@@ -1721,6 +1711,7 @@ def serve_main_path(dev) -> int:
 
     def after(model, params, engine, toks, rng, cfg):
         profile_decode(model, params, toks)
+        roofline_decode_step(model, params, toks)
 
         def replica(delay):
             def run(b):
@@ -2043,9 +2034,9 @@ def k4_bwd_at_shape(dev, label: str, B, Hq, Hkv, T, D, window=None) -> dict:
     lib_diff = float((lib_out.detach() - out).abs().max())
     lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True),
                      10)
-    flops = 10.0 * B * Hq * _valid_pairs(T, 0, T, True, window) * D
+    flops, nbytes = k4.attention_bwd_costs(B, Hq, Hkv, T, T, D, q_offset=0, tk_valid=T,
+                                           causal=True, window=window, elem=q.element_size())
     dq_ctas, dkdv_ctas = plan.ctas(B, Hq, Hkv, T, T)
-    nbytes = 4 * (3 * q.numel() + 2 * k.numel() + lse.numel()) + 4 * (q.numel() + 2 * k.numel())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_fp32 = flops / FP32_FLOPS * 1e3
     t_tf32 = 3 * flops / TF32_FLOPS * 1e3
@@ -2382,6 +2373,256 @@ def coded_dp_train(dev) -> None:
         raise AssertionError(f"the coded gradient sum misses the uncoded one: {rel}")
     del params, ref, model
     torch.cuda.empty_cache()
+
+
+# --- Checkpointing, the card's ceilings and the roofline (slice C4) ---------
+
+# [ckpt-train]: the [train] configuration at 2 of its 32 layers (params, m
+# and v in fp32 are 3 x 4 B a parameter, 9.79 GB at 2 layers, 7.4 GB of it
+# the tied 200064 x 3072 embedding's three copies), 4 steps.  Run A saves at
+# step 3 (the write runs in the background during step 4), run B resumes
+# from it and runs step 4; a third run without a checkpoint says how far
+# two uninterrupted runs repeat.  The disk must hold MIN_FREE times the
+# state before anything is written.
+CKPT_TRAIN = dict(n_layers=2, steps=4, every=3, min_free=2.5)
+# [ceilings]: cuBLAS products of 8192^3 in fp32, TF32 and bf16, and a 4 GiB
+# device-to-device copy, against the data sheet's peaks.
+CEILINGS = dict(n=8192, copy_bytes=4 << 30)
+
+
+def ceilings(dev) -> None:
+    """What the card gives a library call: cuBLAS's fp32 (CUDA cores), TF32
+    (switched on for this call only) and bf16 products at 8192^3, and a
+    4 GiB copy (read and write), each beside the data sheet's peak.  None of
+    these calls is on a path; they measure the card."""
+    import torch
+    from repro_torch.utils import roofline as rl
+
+    n = CEILINGS["n"]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    a = torch.randn((n, n), generator=gen, device=dev)
+    b = torch.randn((n, n), generator=gen, device=dev)
+    flops = 2.0 * n ** 3
+    fp32_ms = time_ms(lambda: torch.mm(a, b), 5)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32_ms = time_ms(lambda: torch.mm(a, b), 10)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    a16, b16 = a.bfloat16(), b.bfloat16()
+    bf16_ms = time_ms(lambda: torch.mm(a16, b16), 10)
+    del a, b, a16, b16
+    src = torch.empty(CEILINGS["copy_bytes"] // 4, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src), 10)
+    del src, dst
+    torch.cuda.empty_cache()
+    copy_gbps = 2 * CEILINGS["copy_bytes"] / copy_ms / 1e6
+    phase("ceilings", n=n, fp32_ms=f"{fp32_ms:.3f}", fp32_tflops=f"{flops / fp32_ms / 1e9:.1f}",
+          fp32_cores_peak_tflops=f"{rl.FP32_FLOPS / 1e12:.0f}", tf32_ms=f"{tf32_ms:.3f}",
+          tf32_tflops=f"{flops / tf32_ms / 1e9:.1f}", tf32_peak_tflops=f"{rl.TF32_FLOPS / 1e12:.0f}",
+          bf16_ms=f"{bf16_ms:.3f}", bf16_tflops=f"{flops / bf16_ms / 1e9:.1f}",
+          bf16_peak_tflops=f"{rl.BF16_FLOPS / 1e12:.0f}", copy_gib=CEILINGS["copy_bytes"] >> 30,
+          copy_ms=f"{copy_ms:.3f}", copy_gbps=f"{copy_gbps:.1f}",
+          hbm_peak_gbps=f"{rl.HBM_BW / 1e9:.0f}")
+
+
+def ckpt_train(dev) -> dict:
+    """Training saved mid-run and resumed through ``launch/train``: the
+    [train] configuration at ``CKPT_TRAIN``'s 2 layers, 4 steps.  Three
+    runs, each with K4's launch counts reset just before it and exact: one
+    without a checkpoint (the repeat), run A with ``--ckpt D --ckpt-every
+    3`` and run B with ``--ckpt D --resume``, which must resume from step
+    3.  Run A's 4 steps against the repeat's say whether two uninterrupted
+    runs repeat bit for bit; run B's step 4 (loss and gradient norm) must
+    equal run A's bit for bit if they do, else lie within their spread.
+    Prints the loop's wait for the host copy, the background write, the
+    checkpoint's GB raw and on disk, its codec and threads, the restore's
+    seconds and each run's peak device memory.  Returns K4's forward and
+    backward launches over runs A and B."""
+    import os
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckm
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.launch import train
+
+    c, t = CKPT_TRAIN, TRAIN
+    cfg = get_config(t["arch"], n_layers=c["n_layers"])
+    state_gb = 3 * 4 * cfg.n_params() / 1e9
+    root = ROOT / "build" / "ckpt-train"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free_gb = shutil.disk_usage(root).free / 1e9
+    if free_gb < c["min_free"] * state_gb:
+        shutil.rmtree(root, ignore_errors=True)
+        raise AssertionError(f"{free_gb:.1f} GB free under {root}, the checkpoint test needs "
+                             f"{c['min_free']} x {state_gb:.2f} GB")
+    args = ["--arch", t["arch"], "--steps", str(c["steps"]), "--batch", str(t["batch"]),
+            "--seq", str(t["seq"]), "--n-micro", str(t["n_micro"]), "--log-every", "1"]
+    runs, info = {}, {}
+    os.environ["REPRO_TRAIN_OVERRIDES"] = f"n_layers={c['n_layers']}"
+    try:
+        for name, extra in (("repeat", []),
+                            ("A", ["--ckpt", str(root), "--ckpt-every", str(c["every"])]),
+                            ("B", ["--ckpt", str(root), "--resume"])):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            k4.flash_attention_cuda.launches = k4.flash_attention_bwd_cuda.launches = 0
+            res = train.run(args + extra)
+            runs[name] = dict(res, fwd=k4.flash_attention_cuda.launches,
+                              bwd=k4.flash_attention_bwd_cuda.launches,
+                              peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            if name == "A":
+                step_dir = root / f"step_{c['every']:09d}"
+                index = ckm._msgpack.unpack((step_dir / "index.msgpack").read_bytes())
+                info = dict(codec=index["codec"], leaves=len(index["leaves"]),
+                            raw_gb=sum(e["raw_bytes"] for e in index["leaves"].values()) / 1e9,
+                            disk_gb=sum(p.stat().st_size for p in step_dir.iterdir()) / 1e9)
+    finally:
+        del os.environ["REPRO_TRAIN_OVERRIDES"]
+        shutil.rmtree(root, ignore_errors=True)
+    rep, a, b = runs["repeat"], runs["A"], runs["B"]
+    for name, r in runs.items():
+        steps = len(r["history"])
+        calls = cfg.n_layers * t["n_micro"] * steps
+        phase("ckpt-train", run=name, start=r["start"], steps_run=steps,
+              losses=",".join(repr(h["loss"]) for h in r["history"]),
+              grad_norms=",".join(repr(h["grad_norm"]) for h in r["history"]),
+              wall_s=f"{r['wall_s']:.3f}", max_memory_allocated_gb=f"{r['peak_gb']:.3f}",
+              k4_fwd_launches=r["fwd"], k4_bwd_launches=r["bwd"],
+              **{k: f"{v:.3f}" for k, v in r["ckpt"].items() if v is not None})
+        if r["fwd"] != 2 * calls or r["bwd"] != k4.BWD_LAUNCHES * calls:
+            raise AssertionError(f"run {name}: K4 launched {r['fwd']} forwards and {r['bwd']} "
+                                 f"backward kernels, expected {2 * calls} and "
+                                 f"{k4.BWD_LAUNCHES * calls}")
+    if b["start"] != c["every"] or len(b["history"]) != c["steps"] - c["every"]:
+        raise AssertionError(f"run B started at step {b['start']}, expected {c['every']}")
+    pairs = [(x["loss"], y["loss"]) for x, y in zip(a["history"], rep["history"])]
+    pairs += [(x["grad_norm"], y["grad_norm"]) for x, y in zip(a["history"], rep["history"])]
+    spread = max(abs(x - y) / abs(y) for x, y in pairs)
+    last_a, last_b = a["history"][-1], b["history"][-1]
+    diff = max(abs(last_b[k] - last_a[k]) / abs(last_a[k]) for k in ("loss", "grad_norm"))
+    phase("ckpt-train", arch=cfg.name, layers=cfg.n_layers, params=cfg.n_params(),
+          state_gb=f"{state_gb:.3f}", free_gb=f"{free_gb:.1f}", codec=info["codec"],
+          threads=ckm.DEFAULT_THREADS, leaves=info["leaves"], raw_gb=f"{info['raw_gb']:.3f}",
+          disk_gb=f"{info['disk_gb']:.3f}", disk_share=f"{info['disk_gb'] / info['raw_gb']:.3f}",
+          snapshot_s=f"{a['ckpt']['snapshot_s']:.3f}", write_s=f"{a['ckpt']['write_s']:.3f}",
+          write_gbps=f"{info['raw_gb'] / a['ckpt']['write_s']:.3f}",
+          restore_s=f"{b['ckpt']['restore_s']:.3f}",
+          restore_gbps=f"{info['raw_gb'] / b['ckpt']['restore_s']:.3f}",
+          resumed_from=b["start"], repeat_bitwise=spread == 0.0, repeat_spread=f"{spread:.3e}",
+          step4_loss_a=repr(last_a["loss"]), step4_loss_b=repr(last_b["loss"]),
+          step4_grad_norm_a=repr(last_a["grad_norm"]), step4_grad_norm_b=repr(last_b["grad_norm"]),
+          resume_diff=f"{diff:.3e}", resume_bitwise=diff == 0.0)
+    if not diff <= spread:
+        raise AssertionError(f"the resumed step 4 differs from run A's by {diff:.3e} relative; "
+                             f"two uninterrupted runs differ by {spread:.3e}")
+    torch.cuda.empty_cache()
+    return dict(fwd=a["fwd"] + b["fwd"], bwd=a["bwd"] + b["bwd"])
+
+
+def _roofline_line(step: str, costs, mf: float, step_s: float, **fields) -> None:
+    """Print one ``[roofline]`` line: the counted costs, the terms at each
+    peak of ``utils.roofline.PEAKS``, and the measured step against the
+    bound at the port's fp32 convention (three TF32 products)."""
+    from repro_torch.utils import roofline as rl
+
+    terms = {p: rl.derive(costs.cost_analysis(), [], mf, peak=p) for p in rl.PEAKS}
+    r = terms["fp32"]
+    phase("roofline", step=step, **fields, aten_flops=f"{costs.aten_flops:.4e}",
+          kernel_flops=f"{costs.kernel_flops:.4e}", aten_bytes=f"{costs.aten_bytes:.4e}",
+          kernel_bytes=f"{costs.kernel_bytes:.4e}", aten_ops=costs.aten_ops,
+          kernel_calls=";".join(f"{k}={v['calls']}" for k, v in sorted(costs.by_kernel.items())),
+          **{f"compute_s_{p}": f"{x.compute_s:.4e}" for p, x in terms.items()},
+          memory_s=f"{r.memory_s:.4e}", dominant=r.dominant, bound_s=f"{r.bound_s:.4e}",
+          model_flops=f"{mf:.4e}", useful_flops_ratio=f"{r.useful_flops_ratio:.4f}",
+          roofline_fraction=f"{r.roofline_fraction:.4f}", step_s=f"{step_s:.4e}",
+          step_over_bound=f"{step_s / r.bound_s:.3f}",
+          **{f"mfu_{p}": f"{mf / (step_s * x.peak_flops):.4f}" for p, x in terms.items()})
+
+
+def roofline_train_step(dev) -> None:
+    """One step of the [train] configuration (8 layers, 8 x 1024 tokens in
+    2 microbatches) under ``utils.trace.StepCosts`` (aten ops and the port's
+    kernels counted apart), its roofline terms, and the step's time,
+    measured on the host's clock around two synchronised steps outside the
+    counting (its per-op Python cost is not the step's)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import make_train_step
+    from repro_torch.utils import roofline as rl
+    from repro_torch.utils.trace import StepCosts
+
+    c = TRAIN
+    cfg = get_config(c["arch"], n_layers=c["n_layers"])
+    model = build_model(cfg, remat=True)
+    params = model.init(0, device=dev)
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=0, total_steps=c["steps"])
+    opt_state = adamw.init(params)
+    step = make_train_step(model, opt_cfg, c["n_micro"], pre_shaped=True, device=dev)
+    data = SyntheticLM(cfg.vocab, c["seq"], c["batch"], n_micro=c["n_micro"], seed=0)
+
+    def batch(i):
+        return {k: torch.as_tensor(v, device=dev) for k, v in data.batch(i).items()}
+
+    params, opt_state, _ = step(params, opt_state, batch(0))
+    times = []
+    for i in (1, 2):
+        b = batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, _ = step(params, opt_state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    b = batch(3)
+    with StepCosts() as costs:
+        params, opt_state, _ = step(params, opt_state, b)
+        torch.cuda.synchronize()
+    mf = rl.model_flops(cfg, Shape("train", "train", c["seq"], c["batch"]), 1)
+    _roofline_line("train", costs, mf, sum(times) / len(times), arch=cfg.name,
+                   layers=cfg.n_layers, tokens=c["batch"] * c["seq"], n_micro=c["n_micro"],
+                   params=cfg.n_params(), step_s_each=",".join(f"{x:.4f}" for x in times))
+    del params, opt_state, model
+    torch.cuda.empty_cache()
+
+
+def roofline_decode_step(model, params, toks, steps: int = 10) -> None:
+    """One decode step of the [serve] path (phi4-mini at its full size, B 4,
+    after a prefill of ``toks[:, :-1]``) under ``StepCosts``, its roofline
+    terms, and the step's time: the mean of ``steps`` synchronised steps on
+    the host's clock, outside the counting."""
+    import torch
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.utils import roofline as rl
+    from repro_torch.utils.trace import StepCosts
+
+    cache = model.init_cache(toks.shape[0], SERVE["max_len"], device=toks.device)
+    with torch.no_grad():
+        _, cache = model.prefill(params, toks[:, :-1], cache)
+        cur = toks[:, -1:]
+        logits, cache = model.decode_step(params, cur, cache)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = model.decode_step(params, cur, cache)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / steps
+        with StepCosts() as costs:
+            logits, cache = model.decode_step(params, cur, cache)
+            torch.cuda.synchronize()
+    cfg = model.cfg
+    mf = rl.model_flops(cfg, Shape("decode", "decode", SERVE["max_len"], toks.shape[0]), 1)
+    _roofline_line("decode", costs, mf, step_s, arch=cfg.name, layers=cfg.n_layers,
+                   batch=toks.shape[0], position=toks.shape[1] + steps, params=cfg.n_params())
+    del cache, logits
 
 
 # --- The other model families (slice C3) ------------------------------------------
@@ -2871,6 +3112,8 @@ def main() -> int:
     tensor_core_sass(libs["flash_attention.cu"], "flash_attention_wgmma_kernel")
     tensor_core_sass(libs["flash_attention_bwd.cu"], "attention_bwd_dq_wgmma_kernel",
                      "attention_bwd_dkdv_wgmma_kernel")
+    # What the card gives library calls, beside the data sheet's peaks.
+    ceilings(dev)
 
     # 3.-4. K1, K2 and K3 against their plain versions, then K1 at the main
     # path's shape.
@@ -2963,6 +3206,13 @@ def main() -> int:
     train_card_vs_cpu(dev)
     coded_dp_train(dev)
 
+    # 12b. Checkpointing (slice C4): training saved mid-run and resumed
+    # through launch/train (K4's launches reset just before each run), then
+    # the roofline of one training step (the decode step's came with
+    # [serve]).
+    ckpt_launches = ckpt_train(dev)
+    roofline_train_step(dev)
+
     # 13. The other model families (slice C3): K4 and its backward at their
     # attention shapes, each family's serving path at its published width
     # (K4's launches reset just before each generate run), then the card
@@ -2972,9 +3222,11 @@ def main() -> int:
     family_launches = {spec["name"]: serve_family(dev, spec) for spec in FAMILY_SERVE}
     families_card_vs_cpu(dev)
     families_train_card(dev)
-    fa["launches_by_path"] = {"serve": fa["launches"], **family_launches}
+    fa["launches_by_path"] = {"serve": fa["launches"], **family_launches,
+                              "ckpt-train": ckpt_launches["fwd"]}
     fa["family_shapes"] = fa_family
-    fa_bwd["launches_by_path"] = {"train": fa_bwd["launches"]}
+    fa_bwd["launches_by_path"] = {"train": fa_bwd["launches"],
+                                  "ckpt-train": ckpt_launches["bwd"]}
     fa_bwd["family_shapes"] = [fa_bwd_family]
 
     # 14. Every kernel of the paths.

@@ -17,11 +17,23 @@ models the float32 design step by step).
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
+from ...utils import trace
 from .. import _nvcc
 
 SOURCE = "coded_matmul.cu"
+
+
+def coded_matmul_costs(R: int, bm: int, k: int, n: int, C: int, d_max: int,
+                       elem: int) -> Tuple[float, int]:
+    """(FLOPs, bytes) of one call, the counts of its bound: the C block
+    products (2 C bm k n; the encode's FMAs run beside them on the CUDA
+    cores); A, X, idx and the weights read once, the output written once."""
+    nbytes = (R * bm * k + k * n + C * bm * n) * elem + 2 * 4 * C * d_max
+    return 2.0 * C * bm * k * n, nbytes
 
 
 def _lib():
@@ -74,6 +86,9 @@ def coded_matmul_cuda(
                  *(t.data_ptr() if t is not None else None for t in ptrs), R, bm, k, n, C,
                  d_max, _nvcc.DTYPE_CODE[a.dtype])
     coded_matmul_cuda.launches += 1
+    if trace.counting():
+        trace.count_kernel("coded_matmul", *coded_matmul_costs(R, bm, k, n, C, d_max,
+                                                                a.element_size()))
     return out
 
 

@@ -48,6 +48,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ...utils import trace
 from .. import _nvcc
 
 SOURCE = "flash_attention.cu"
@@ -132,6 +133,39 @@ def _lib():
 def _bwd_lib():
     _nvcc.bind(BWD_SOURCE, "flash_attention_bwd_dq", 10, 27, 2)
     return _nvcc.bind(BWD_SOURCE, "flash_attention_bwd_dkdv", 10, 27, 2)
+
+
+def valid_pairs(Tq: int, q_offset: int, tk_valid: int, causal: bool,
+                window: Optional[int]) -> int:
+    """(query, key) pairs a call attends over: key j < tk_valid, j <= the
+    query's position if causal, position - j < window if windowed."""
+    hi = [min(q_offset + t + 1, tk_valid) if causal else tk_valid for t in range(Tq)]
+    lo = [0 if window is None else max(q_offset + t - window + 1, 0) for t in range(Tq)]
+    return sum(max(h - l_, 0) for h, l_ in zip(hi, lo))
+
+
+def attention_costs(B: int, Hq: int, Hkv: int, Tq: int, D: int, *, q_offset: int,
+                    tk_valid: int, causal: bool, window: Optional[int], elem: int,
+                    lse: bool = False) -> Tuple[float, int]:
+    """(FLOPs, bytes) of one forward call, the counts of its bound: the two
+    products over the valid pairs (4 B Hq pairs D); q read and the output
+    written once, and the K/V rows some query attends to read once (plus
+    the float32 log-sum-exp written, given ``lse``)."""
+    flops = 4.0 * B * Hq * valid_pairs(Tq, q_offset, tk_valid, causal, window) * D
+    keys = tk_valid - (0 if window is None else max(0, q_offset - window + 1))
+    nbytes = 2 * B * Hq * Tq * D * elem + 2 * B * Hkv * keys * D * elem
+    return flops, nbytes + (4 * B * Hq * Tq if lse else 0)
+
+
+def attention_bwd_costs(B: int, Hq: int, Hkv: int, Tq: int, Tk: int, D: int, *,
+                        q_offset: int, tk_valid: int, causal: bool, window: Optional[int],
+                        elem: int) -> Tuple[float, int]:
+    """(FLOPs, bytes) of one backward call, the counts of its bound: five
+    products over the valid pairs (S, dP, dV, dQ, dK: 10 B Hq pairs D); q,
+    o, dO, k, v and the float32 lse read once, dq, dk, dv written once."""
+    flops = 10.0 * B * Hq * valid_pairs(Tq, q_offset, tk_valid, causal, window) * D
+    nq, nk = B * Hq * Tq * D, B * Hkv * Tk * D
+    return flops, elem * (3 * nq + 2 * nk) + 4 * B * Hq * Tq + elem * (nq + 2 * nk)
 
 
 def _check_qkv(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
@@ -231,6 +265,10 @@ def flash_attention_cuda(
                  1.0 / (D ** 0.5),  # the TPU kernel's scale
                  float(softcap or 0.0))
     flash_attention_cuda.launches += 1
+    if trace.counting():
+        trace.count_kernel("flash_attention", *attention_costs(
+            B, Hq, Hkv, Tq, D, q_offset=int(q_offset), tk_valid=tk_valid, causal=bool(causal),
+            window=window, elem=q.element_size(), lse=lse is not None))
     return out
 
 
@@ -318,6 +356,10 @@ def flash_attention_bwd_cuda(
     flash_attention_bwd_cuda.launches += 1
     _nvcc.launch(lib, "flash_attention_bwd_dkdv", q.device, *args)
     flash_attention_bwd_cuda.launches += 1
+    if trace.counting():
+        trace.count_kernel("flash_attention_bwd", *attention_bwd_costs(
+            B, Hq, Hkv, Tq, Tk, D, q_offset=int(q_offset), tk_valid=tk_valid,
+            causal=bool(causal), window=window, elem=q.element_size()))
     return dq, dk, dv
 
 

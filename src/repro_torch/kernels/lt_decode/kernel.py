@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils import trace
 from .. import _nvcc
 from . import schedule
 
@@ -69,6 +70,10 @@ def lt_decode_plan_cuda(
                  program.data_ptr(), program.numel(), R, n_rx, L,
                  _nvcc.DTYPE_CODE[src.dtype])
     lt_decode_plan_cuda.launches += 1
+    if trace.counting():
+        with trace.uncounted():
+            words = program.cpu().numpy()
+        trace.count_kernel("lt_decode", *schedule.program_costs(words, L, src.element_size()))
     return src
 
 

@@ -25,7 +25,7 @@ neighbours outside ``[0, R)``, as the kernel skips them.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
@@ -200,3 +200,23 @@ def read_program(words: np.ndarray) -> List[ProgramRound]:
         else:
             raise ValueError(f"word {p} ({head}) is not a record of a program")
     return rounds
+
+
+def program_costs(words: np.ndarray, L: int, elem: int) -> Tuple[float, int]:
+    """(operations, bytes) of one launch of a program over blocks of ``L``
+    elements of ``elem`` bytes, the counts of K3's bound: a multiply-add per
+    element of each nonzero-weight neighbour and a scale per recovered
+    element; the inputs read once (each entry's coded block, and the source
+    blocks its neighbours and padding lists name that the program does not
+    recover itself) and each recovered block written once, plus the
+    program's words.  A block the launch recovers and reads again is an
+    intermediate."""
+    rounds = read_program(words)
+    entries = [e for r in rounds for e in r.entries]
+    named = {int(b) for r in rounds for b in r.padding}
+    named |= {int(b) for e in entries for b in e.idx}
+    dsts = {e.dst for e in entries}
+    inputs = len({e.cpos for e in entries}) + len(named - dsts)
+    n_nbr = sum(int(e.idx.size) for e in entries)
+    ops = 2.0 * n_nbr * L + len(entries) * L
+    return ops, (inputs + len(entries)) * L * elem + int(np.asarray(words).size) * 4

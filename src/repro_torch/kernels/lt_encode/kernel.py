@@ -12,11 +12,22 @@ takes CUDA tensors only; the plain version for the CPU is
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
+from ...utils import trace
 from .. import _nvcc
 
 SOURCE = "lt_encode.cu"
+
+
+def lt_encode_costs(R: int, bm: int, cols: int, C: int, d_max: int, nnz: int,
+                    elem: int) -> Tuple[float, int]:
+    """(FLOPs, bytes) of one call, the counts of its bound: a multiply-add
+    per element of each nonzero-weight neighbour block (2 nnz bm cols); A,
+    idx and the weights read once, the coded blocks written once."""
+    return 2.0 * nnz * bm * cols, (R * bm + C * bm) * cols * elem + 2 * 4 * C * d_max
 
 
 def _lib():
@@ -57,6 +68,11 @@ def lt_encode_cuda(
                  out.data_ptr(), scratch.data_ptr(), R, bm, cols, C, d_max,
                  _nvcc.DTYPE_CODE[a.dtype])
     lt_encode_cuda.launches += 1
+    if trace.counting():
+        with trace.uncounted():
+            nnz = int((weights != 0).sum())
+        trace.count_kernel("lt_encode", *lt_encode_costs(R, bm, cols, C, d_max, nnz,
+                                                          a.element_size()))
     return out
 
 

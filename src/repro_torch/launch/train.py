@@ -1,7 +1,7 @@
 """Training launcher (port of ``repro.launch.train``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch phi4-mini-3.8b \\
-      --steps 4 --batch 8 --seq 1024 --n-micro 2
+      --steps 4 --batch 8 --seq 1024 --n-micro 2 [--ckpt DIR --ckpt-every 2 [--resume]]
 
 builds the model on the card (``--device``, default ``cuda``; raises without
 one) with remat, the port's random init from ``--seed``, and trains it with
@@ -13,10 +13,13 @@ around a synchronise, and tokens per second.  Step times feed a
 
 ``--coded-dp`` runs the coded data-parallel step (R-of-(R+K) gradient
 aggregation) with R workers = the data size of ``--mesh``, in turn on the
-one device.  Not ported: ``--ckpt``/``--resume`` (checkpointing waits for
-slice C4 of the port) and a plain data- or model-parallel ``--mesh`` above 1
-(it waits for a second card); ``--devices``, the reference's XLA flag that
-forces host devices, has no counterpart and is ignored with a note.
+one device.  ``--ckpt DIR`` saves ``{"params", "opt"}`` every
+``--ckpt-every`` steps in the background (``checkpoint.AsyncCheckpointer``,
+the reference's format); ``--resume`` restores the latest step there into
+the model's tensors and continues the loop from it.  Not ported: a plain
+data- or model-parallel ``--mesh`` above 1 (it waits for a second card);
+``--devices``, the reference's XLA flag that forces host devices, has no
+counterpart and is ignored with a note.
 ``REPRO_TRAIN_OVERRIDES`` (``key=int,...``) overrides config fields, as in
 the reference.
 """
@@ -54,12 +57,13 @@ def _parse_args(argv=None):
 
 def run(argv=None) -> dict:
     """Train as ``main`` does; returns the final loss, the per-step
-    history (loss, grad_norm, lr, step ms, tokens/s and, of the first step,
-    each gradient leaf's sum of squares), the config and the device."""
+    history of the steps run (loss, grad_norm, lr, step ms, tokens/s and,
+    of the first, each gradient leaf's sum of squares), the config, the
+    device, the step the run started from, and with ``--ckpt`` the
+    checkpoint's seconds (``restore_s`` of a resume; ``snapshot_s``, the
+    loop's wait for the host copy, and ``write_s``, the background write,
+    of the last save)."""
     args = _parse_args(argv)
-    if args.ckpt or args.resume:
-        raise NotImplementedError("--ckpt/--resume: checkpointing is not ported yet; it waits "
-                                  "for slice C4 of the port (ROADMAP queue 1)")
     data_n, model_n = (int(x) for x in args.mesh.split(","))
     if model_n > 1 or (data_n > 1 and not args.coded_dp):
         raise NotImplementedError(
@@ -73,6 +77,7 @@ def run(argv=None) -> dict:
     import torch
 
     from repro_torch import _device
+    from repro_torch import checkpoint as ck
     from repro_torch.configs import get_config
     from repro_torch.core.scheduler import CCPScheduler
     from repro_torch.data import SyntheticLM
@@ -93,6 +98,18 @@ def run(argv=None) -> dict:
                                 total_steps=args.steps)
     opt_state = adamw.init(params)
     data = SyntheticLM(cfg.vocab, args.seq, args.batch, n_micro=args.n_micro, seed=args.seed)
+    start, ckpt, ckpt_times = 0, None, {}
+    if args.ckpt:
+        ckpt = ck.AsyncCheckpointer(args.ckpt)
+        if args.resume and ck.latest_step(args.ckpt) is not None:
+            t0 = time.perf_counter()
+            state, meta = ck.restore(args.ckpt, None, {"params": params, "opt": opt_state})
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            ckpt_times["restore_s"] = time.perf_counter() - t0
+            params, opt_state = state["params"], state["opt"]
+            start = int(meta.get("step", 0))
+            print(f"resumed from step {start}", flush=True)
 
     sched = CCPScheduler(n_workers=data_n)
     if args.coded_dp:
@@ -114,7 +131,7 @@ def run(argv=None) -> dict:
 
     history, loss = [], float("nan")
     t_start = time.perf_counter()
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         batch = {k: torch.as_tensor(v, device=dev) for k, v in data.batch(step).items()}
         sync()
         t0 = time.perf_counter()
@@ -126,17 +143,23 @@ def run(argv=None) -> dict:
         rec = dict(step=step, loss=loss, grad_norm=float(metrics["grad_norm"]),
                    lr=float(metrics["lr"]), ms=dt * 1e3,
                    tokens_per_s=args.batch * args.seq / dt)
-        if step == 0:
+        if step == start:
             rec["grad_leaf_sq"] = metrics["grad_leaf_sq"].cpu().numpy()
         history.append(rec)
         if step % args.log_every == 0 or step == args.steps - 1:
             print(f"step {step:5d} loss {loss:.4f} gnorm {rec['grad_norm']:.3f} "
                   f"lr {rec['lr']:.2e} {dt * 1e3:.0f}ms {rec['tokens_per_s']:.0f} tok/s",
                   flush=True)
+        if ckpt and (step + 1) % args.ckpt_every == 0:
+            ckpt.save_async(step + 1, {"params": params, "opt": opt_state},
+                            metadata={"step": step + 1})
+    if ckpt:
+        ckpt.wait()
+        ckpt_times.update(snapshot_s=ckpt.snapshot_s, write_s=ckpt.write_s)
     wall = time.perf_counter() - t_start
-    print(f"done: {args.steps} steps in {wall:.1f}s on {dev}, final loss {loss:.4f}")
+    print(f"done: {args.steps - start} steps in {wall:.1f}s on {dev}, final loss {loss:.4f}")
     return dict(loss=loss, history=history, cfg=cfg, device=dev, wall_s=wall,
-                sched_e_beta=sched.e_beta)
+                sched_e_beta=sched.e_beta, start=start, ckpt=ckpt_times)
 
 
 def main(argv=None):

@@ -1192,3 +1192,62 @@ def test_moe_combine_on_the_card_is_bitwise_repeatable(card):
     assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
     torch.testing.assert_close(a.cpu(), ref, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(aux_a.cpu(), aux_ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_checkpoint_restores_into_card_tensors_and_onto_the_card(card, tmp_path):
+    """A tree on the card (a bf16 leaf and AdamW's step among float32 ones)
+    saved and restored: into the same card tensors (copied into, the same
+    objects), and from a meta target onto the card by ``device``."""
+    from repro_torch import checkpoint as ck
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import adamw
+
+    g = torch.Generator(device=card).manual_seed(0)
+    params = {"w": torch.randn((64, 32), generator=g, device=card),
+              "b": torch.randn(32, generator=g, device=card).bfloat16()}
+    state = adamw.AdamWState(5, {k: v.float() * 2 for k, v in params.items()},
+                             {k: v.float() ** 2 for k, v in params.items()})
+    tree = {"params": params, "opt": state}
+    ck.save(tmp_path, 5, tree, metadata={"step": 5})
+    want = [t.clone() for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            t.zero_()
+    r, meta = ck.restore(tmp_path, None, tree)
+    assert meta == {"step": 5} and r["opt"].step == 5 and r["params"]["w"] is params["w"]
+    got = [t for t in tree_leaves(r) if isinstance(t, torch.Tensor)]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    meta_tree = {"params": {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                            for k, v in params.items()},
+                 "opt": adamw.AdamWState(0, *({k: torch.empty(v.shape, device="meta")
+                                               for k, v in s.items()}
+                                              for s in (state.m, state.v)))}
+    r, _ = ck.restore(tmp_path, 5, meta_tree, device=card)
+    got = [t for t in tree_leaves(r) if isinstance(t, torch.Tensor)]
+    assert all(t.device.type == "cuda" and torch.equal(a, t) for a, t in zip(want, got))
+
+
+@pytest.mark.gpu
+def test_step_costs_count_the_kernels_launches_on_the_card(card):
+    """Under StepCosts, K4's forward and backward add their bound's counts
+    (the wrappers are ctypes launches the dispatcher never sees)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.utils.trace import StepCosts
+
+    g = torch.Generator(device=card).manual_seed(1)
+    B, Hq, Hkv, T, D = 2, 4, 2, 96, 64
+    q = torch.randn((B, Hq, T, D), generator=g, device=card, requires_grad=True)
+    k, v = (torch.randn((B, Hkv, T, D), generator=g, device=card, requires_grad=True)
+            for _ in range(2))
+    with StepCosts() as costs:
+        out = flash_attention(q, k, v, causal=True)
+        out.sum().backward()
+        torch.cuda.synchronize()
+    kw = dict(q_offset=0, tk_valid=T, causal=True, window=None, elem=4)
+    f, b = k4.attention_costs(B, Hq, Hkv, T, D, lse=True, **kw)
+    fb, bb = k4.attention_bwd_costs(B, Hq, Hkv, T, T, D, **kw)
+    assert costs.by_kernel["flash_attention"] == {"calls": 1, "flops": f, "bytes": b}
+    assert costs.by_kernel["flash_attention_bwd"] == {"calls": 1, "flops": fb, "bytes": bb}
+    assert costs.kernel_flops == f + fb and costs.aten_bytes > 0

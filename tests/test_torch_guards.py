@@ -1,6 +1,7 @@
 """Guards of the PyTorch port: it imports nothing of JAX or of the JAX
-package, and its entry points run on a CUDA card unless the caller asks
-for the CPU."""
+package (nor ``msgpack``, ``zstandard`` or ``ml_dtypes``, which the card's
+host need not have), and its entry points run on a CUDA card unless the
+caller asks for the CPU."""
 
 import os
 import pathlib
@@ -29,7 +30,7 @@ import importlib.abc, pkgutil, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack", "zstandard", "ml_dtypes"):
             raise ImportError(f"the port imported {name}")
         return None
 
@@ -87,7 +88,23 @@ assert state.step == 1 and float(m["loss"]) > 0, m
 step, code, (pats, ws) = make_coded_train_step(model, adamw.AdamWConfig(), 2, device="cpu")
 params, state, m = step(params, adamw.init(params), {"tokens": tok, "labels": tok}, ws[0])
 assert state.step == 1 and float(m["loss"]) > 0, m
-assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
+import tempfile, torch
+from repro_torch import checkpoint as ck
+from repro_torch.checkpoint import checkpoint as ckm
+assert ckm.zstandard is None and ckm.DEFAULT_CODEC == "zlib"
+with tempfile.TemporaryDirectory() as d:
+    tree = {"params": params, "opt": state}
+    ck.save(d, 1, tree, metadata={"step": 1})
+    r, meta = ck.restore(d, None, {"params": params, "opt": state})
+    assert meta == {"step": 1} and r["opt"].step == 1, meta
+    from repro_torch.launch import train
+    args = ["--arch", "mistral-nemo-12b", "--smoke", "--device", "cpu", "--seq", "8",
+            "--batch", "2", "--steps", "3", "--ckpt", d + "/run"]
+    a = train.run(args + ["--ckpt-every", "2"])
+    b = train.run(args + ["--resume"])
+    assert b["start"] == 2 and b["loss"] == a["loss"], (a["loss"], b["loss"])
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack", "zstandard", "ml_dtypes")
+               for m in sys.modules)
 print("OK")
 """
 
@@ -101,20 +118,22 @@ def test_port_imports_no_jax_and_runs_without_it():
 
 
 def test_chip_smoke_and_port_sources_name_no_jax():
-    """No import of jax or of the reference package in the port's sources
-    or in chip_smoke.py."""
+    """No import of jax, of the reference package, of msgpack or of
+    ml_dtypes in the port's sources or in chip_smoke.py (zstandard is an
+    optional import of the checkpoint, as in the reference)."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     names = {f.relative_to(ROOT / "src" / "repro_torch").as_posix() for f in files[:-1]}
     assert {"optim/adamw.py", "data/pipeline.py", "runtime/train_loop.py",
             "core/gradient_coding.py", "launch/train.py",
             "kernels/flash_attention/autograd.py", "models/rglru.py", "models/xlstm.py",
-            "models/moe.py", "models/encdec.py"} <= names
+            "models/moe.py", "models/encdec.py", "checkpoint/checkpoint.py",
+            "checkpoint/_msgpack.py", "utils/roofline.py", "utils/trace.py"} <= names
     for f in files:
         for line in f.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 top = words[1].split(".")[0]
-                assert top not in ("jax", "jaxlib", "repro"), (f, line)
+                assert top not in ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes"), (f, line)
 
 
 def test_default_device_is_cuda_and_entry_points_refuse_without_a_card():

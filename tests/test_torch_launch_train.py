@@ -1,6 +1,7 @@
 """The port's training launcher (``python -m repro_torch.launch.train``) on
-the CPU: smoke steps, the coded-DP path, the config overrides, and the
-options that wait for other slices refused."""
+the CPU: smoke steps, the coded-DP path, the config overrides, a run
+saved mid-way and resumed, and the options that wait for other slices
+refused."""
 
 import numpy as np
 import pytest
@@ -39,8 +40,27 @@ def test_overrides_from_the_environment(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--ckpt", "ck"], "slice C4"), (["--resume"], "slice C4"),
     (["--mesh", "2,1"], "second card"), (["--mesh", "1,2", "--coded-dp"], "second card")])
 def test_what_waits_for_other_slices_is_refused(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         train.run(SMOKE + ["--steps", "1"] + extra)
+
+
+def test_ckpt_then_resume_equals_the_uninterrupted_run(tmp_path, capsys):
+    """--ckpt saves every --ckpt-every steps; --resume restores the latest
+    and runs the rest, which repeat the uninterrupted run's steps exactly;
+    --resume with no checkpoint yet starts from step 0."""
+    args = SMOKE + ["--steps", "5", "--n-micro", "2", "--log-every", "1"]
+    full = train.run(args)
+    ck = ["--ckpt", str(tmp_path / "ck")]
+    first = train.run(args + ck + ["--ckpt-every", "2", "--resume"])
+    assert first["start"] == 0 and sorted(p.name for p in (tmp_path / "ck").glob("step_*")) == [
+        "step_000000002", "step_000000004"]
+    assert first["ckpt"]["snapshot_s"] >= 0 and first["ckpt"]["write_s"] > 0
+    resumed = train.run(args + ck + ["--resume"])
+    assert resumed["start"] == 4 and [h["step"] for h in resumed["history"]] == [4]
+    assert "resumed from step 4" in capsys.readouterr().out
+    assert resumed["ckpt"]["restore_s"] > 0
+    for key in ("loss", "grad_norm", "lr"):
+        assert resumed["history"][0][key] == full["history"][4][key] == first["history"][4][key]
+    assert np.all(resumed["history"][0]["grad_leaf_sq"] > 0)  # the first step run's
