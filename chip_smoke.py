@@ -29,7 +29,12 @@ H100's peaks in ``utils.roofline``, beside what cuBLAS and a copy reach on
 the card); the other model families: recurrentgemma-2b,
 xlstm-350m, whisper-large-v3 and moonshot-v1-16b-a3b (16 of 48 layers)
 served at their published widths, K4 at their attention shapes, and each
-family's logits and gradients on the card against the CPU), checks the
+family's logits and gradients on the card against the CPU; the paths over
+several devices and ranks: the coded matmul over a mesh of 8 shards on the
+card, one K1 launch a shard, with the collector's recoveries, the sharded
+Monte-Carlo engine and fleet bit for bit the unsharded runs, and phi4-mini
+(1 layer) trained data parallel and coded data parallel across 4
+``torch.distributed`` ranks spawned on the card), checks the
 results, and prints one line per phase.  The line before
 the last is a JSON object with every kernel's launches on the main path,
 error and times; the last line is ``{"ok": true, "device": {...}}``.  Any
@@ -3065,6 +3070,389 @@ def families_train_card(dev) -> None:
         torch.cuda.empty_cache()
 
 
+# --- The C3P paths over several devices and ranks (slice C5a) ---------------
+
+# [engine-shard]: FIG3[1] (N=100, R=2000) with 202 reps (not a multiple of
+# the 4 slices) on four slices of the one card, CCP and rateless CCP (the
+# decoder in the loop); the fleet at tests/test_fleet.py:436's config (6
+# helpers, 3 striped tenants of 3, churn, GE loss, a fixed RTT), 11 reps.
+ENGINE_SHARD = dict(R=2000, reps=202, slices=4, policies=("ccp", "rateless_ccp"),
+                    fleet_reps=11, fleet_R=30)
+# [ranks-train]: 4 ranks on the one card (gloo: NCCL refuses two ranks on
+# one device), phi4-mini at its published width, n_layers cut from 32 to 1:
+# at [ckpt-train]'s 2 layers (params, gradients, m and v 13 GB a rank) the
+# four ranks ran out of the card's 80 GB in the coded step, where the rank
+# holding the parity keeps its own gradient while it differentiates the
+# parity's 4 sequences and each rank's backward through the tied 200064 x
+# 3072 embedding adds 2.46 GB temporaries; a global
+# batch of 4 x 512 synthetic tokens, one sequence a rank; 2 data-parallel
+# steps, then 2 coded-DP steps (R=4 workers, K=1 parity) from the same
+# init.  The DP loss within 1e-5 relative of the one-process step's on the
+# same batch and each gradient leaf within 1e-4 of its max |g| (the port's
+# card-vs-CPU tolerances); the coded update within 5e-5 of the uncoded one
+# and its gradient sum within 1e-5 of R times the DP mean, relative to the
+# leaf's max (tests/test_coded_train_step.py's and [coded-dp-train]'s):
+# with no straggler (every parity weight 0: the sum is the workers' own
+# gradients) and, outside the counted runs, with one (a worker's own
+# gradient dropped and decoded from the parity).
+RANKS_TRAIN = dict(world=4, n_layers=1, batch=4, seq=512, steps=2, n_parity=1, seed=5,
+                   lr=1e-3, loss_rtol=1e-5, grad_tol=1e-4, update_tol=5e-5, sum_rtol=1e-5,
+                   timeout_s=600)
+
+
+def shard_data_plane(dev) -> dict:
+    """MAIN's coded matmul over a mesh of 8 shards, all on the one card
+    (``run(plan, a, x, mesh=make_host_mesh(model=8, devices=[dev] * 8))``):
+    one K1 launch a shard, the output against the one-launch run, then the
+    collector's ``recover`` from 7 survivors for each of the 7 losses that
+    peel (K3), the error against A X in fp64 (limit 1e-4).  K1's and K3's
+    counts are reset just before the run and read after the recoveries.
+    Then, outside the counted run, each shard's launch timed by events
+    beside its bound, and the whole sharded run beside the one launch.
+    Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core import coded_matmul as cm
+    from repro_torch.core import fountain
+    from repro_torch.kernels.coded_matmul import coded_matmul_cuda
+    from repro_torch.kernels.coded_matmul.kernel import coded_matmul_costs
+    from repro_torch.kernels.lt_decode import lt_decode_plan_cuda
+    from repro_torch.launch import mesh
+
+    n = MAIN["n_shards"]
+    plan = cm.plan_coded_matmul(rows=MAIN["rows"], n_shards=n, overhead=MAIN["overhead"],
+                                bm=MAIN["bm"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((MAIN["rows"], MAIN["k_dim"]), generator=gen, device=dev)
+    x = torch.randn((MAIN["k_dim"], MAIN["n_dim"]), generator=gen, device=dev)
+    grid = mesh.make_host_mesh(model=n, devices=[dev] * n)
+    y64 = a.double() @ x.double()
+    scale = float(y64.abs().max())
+
+    def survivors(lost):
+        return np.array([s for s in range(n) if s != lost])
+
+    peel = [lost for lost in range(n)
+            if (fp := fountain.peel_decode_plan(
+                plan.code, np.concatenate([plan.placement[s] for s in survivors(lost)])))
+            is not None and fp.n_peeled > 0]
+    torch.cuda.synchronize()
+    coded_matmul_cuda.launches = lt_decode_plan_cuda.launches = 0
+    out = cm.run(plan, a, x, mesh=grid)
+    rel = {}
+    for lost in peel:
+        y = cm.recover(plan, out, survivors(lost))
+        rel[lost] = float((y.double() - y64).abs().max()) / scale
+        del y
+    torch.cuda.synchronize()
+    k1, k3 = coded_matmul_cuda.launches, lt_decode_plan_cuda.launches
+    one = cm.run(plan, a, x)
+    bitwise = bool(torch.equal(out, one))
+    diff = float((out - one).abs().max())
+    del one
+    worst = max(rel.values())
+    phase("shard-data-plane", shape=f"{MAIN['rows']}x{MAIN['k_dim']}x{MAIN['n_dim']}",
+          shards=n, devices=",".join(str(d) for d in grid.axis_devices("model")),
+          k1_launches=k1, k3_launches=k3, peeling_losses=len(peel),
+          bitwise_one_launch=bitwise, max_abs_diff_one_launch=f"{diff:.3e}",
+          worst_rel_err_fp64=f"{worst:.3e}",
+          rel_errs=",".join(f"{rel[s]:.3e}" for s in peel))
+    if k1 != n:
+        raise AssertionError(f"the sharded run launched K1 {k1} times for {n} shards")
+    if k3 != len(peel):
+        raise AssertionError(f"the collector launched K3 {k3} times for {len(peel)} peeling "
+                             "recoveries")
+    if not diff <= 1e-4:
+        raise AssertionError(f"the sharded output differs from the one launch by {diff:.3e}")
+    if not worst <= 1e-4:
+        raise AssertionError(f"recovery error {worst:.3e} > 1e-4 against A X in fp64")
+    # Each shard's launch (C=5 blocks of 256 rows) by events, beside its
+    # bound: A (all of it, as K1's bound counts), X and the shard's output
+    # once, and its products as three TF32 products.
+    idx, w = cm.device_blocks(plan, a)
+    per, d_max = idx.shape[0] // n, idx.shape[1]
+    (k, n_dim), R = x.shape, a.shape[0] // plan.bm
+    shard_ms = []
+    for s in range(n):
+        idx_s, w_s = idx[s * per:(s + 1) * per].contiguous(), w[s * per:(s + 1) * per].contiguous()
+        ms = time_ms(lambda: coded_matmul_cuda(a, x, idx_s, w_s, plan.bm), 10)
+        products, nbytes = coded_matmul_costs(R, plan.bm, k, n_dim, per, d_max, 4)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 3 * products / TF32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        shard_ms.append(ms)
+        phase("shard-data-plane", shard=s, C=per, parity_blocks=int(((w_s != 0).sum(1) > 1).sum()),
+              k1_ms=f"{ms:.4f}", bound_ms=f"{bound:.4f}",
+              bound_by="bytes" if t_bytes >= t_ops else "operations",
+              share_of_bound=f"{bound / ms:.3f}")
+    sharded_ms = time_ms(lambda: cm.run(plan, a, x, mesh=grid), 5)
+    one_ms = time_ms(lambda: cm.run(plan, a, x), 5)
+    phase("shard-data-plane", sum_of_shards_ms=f"{sum(shard_ms):.4f}",
+          sharded_run_ms=f"{sharded_ms:.4f}", one_launch_run_ms=f"{one_ms:.4f}",
+          ratio=f"{sharded_ms / one_ms:.3f}")
+    del a, x, y64, out
+    torch.cuda.empty_cache()
+    return dict(k1=k1, k3=k3)
+
+
+def engine_shard(dev) -> None:
+    """``Engine(shard=True, devices=[dev] * 4)`` at FIG3[1] with 202 reps
+    (padded to 204, then dropped) for CCP and rateless CCP, and
+    ``run_fleet(shard=True)`` at tests/test_fleet.py:436's config with 11
+    reps: every result bit for bit the unsharded run's on the card (NaN
+    equal to NaN), each run's wall time on the host's clock."""
+    import torch
+    from repro_torch.configs.ccp_paper import FIG3
+    from repro_torch.core import engine, fleet, simulator
+
+    c = ENGINE_SHARD
+    devs = [dev] * c["slices"]
+    before = _kernel_launches()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def check(label, one, sharded):
+        d1, d2 = one.as_dict(), sharded.as_dict()
+        if d1["M"] != d2["M"] or sorted(d1) != sorted(d2):
+            raise AssertionError(f"{label}: M or keys differ between the sharded and one run")
+        _equal_or_raise(label, {k: v for k, v in d2.items() if k != "M"},
+                        {k: v.cpu() for k, v in d1.items() if k != "M"},
+                        [k for k in d1 if k != "M"])
+
+    for pol in c["policies"]:
+        one, wall_one = timed(lambda: engine.Engine(device=dev).run(FIG3[1], pol, c["reps"],
+                                                                    c["R"]))
+        sharded, wall_sh = timed(lambda: engine.Engine(device=dev, shard=True, devices=devs).run(
+            FIG3[1], pol, c["reps"], c["R"]))
+        check(f"engine-shard {pol}", one, sharded)
+        phase("engine-shard", cfg="FIG3[1]", policy=pol, R=c["R"], reps=c["reps"],
+              slices=c["slices"], M=sharded.M, bitwise=True, all_valid=bool(sharded.valid.all()),
+              T_mean=f"{float(sharded.T.mean()):.6f}", wall_one_s=f"{wall_one:.3f}",
+              wall_sharded_s=f"{wall_sh:.3f}")
+    ch = simulator.ChurnConfig(period=5.0, p_down=0.15, p_slow=0.25, drop_prob=0.05,
+                               ge_p_bad=0.03, ge_p_good=0.25, ge_loss_bad=0.5,
+                               rtt_dist="fixed", rtt_mean=0.5, max_backoff=8.0)
+    cfg = simulator.ScenarioConfig(N=6, scenario=1, churn=ch)
+    fc = fleet.FleetConfig(n_tasks=3, placement="striped", helpers_per_task=3)
+    eng = engine.Engine(device=dev, devices=devs)
+    one, wall_one = timed(lambda: eng.run_fleet(cfg, "ccp", c["fleet_reps"], c["fleet_R"],
+                                                fleet=fc))
+    sharded, wall_sh = timed(lambda: eng.run_fleet(cfg, "ccp", c["fleet_reps"], c["fleet_R"],
+                                                   fleet=fc, shard=True))
+    check("engine-shard fleet", one, sharded)
+    _no_kernel_between(before, "engine-shard")
+    phase("engine-shard", cfg="test_fleet.py:436 (N=6, 3 striped tenants, churn)", policy="ccp",
+          R=c["fleet_R"], reps=c["fleet_reps"], slices=c["slices"], M=sharded.M, bitwise=True,
+          wall_one_s=f"{wall_one:.3f}", wall_sharded_s=f"{wall_sh:.3f}")
+
+
+def _ranks_train_rank(rank: int, world: int, store: str, device: str) -> dict:
+    """One rank of [ranks-train] on ``device``: returns its backend, the
+    comparisons (rank 0), the all-reduce's seconds, each step's loss and
+    seconds, and K4's launches in the data-parallel and coded steps."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import _device
+    from repro_torch.configs import get_config
+    from repro_torch.core import gradient_coding
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.launch import mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import collectives
+    from repro_torch.runtime.train_loop import (accumulate_grads, make_coded_train_step,
+                                                make_train_step)
+
+    c = RANKS_TRAIN
+    dev = torch.device(device)
+    _device.full_fp32_matmuls(dev)
+    group = mesh.init_ranks(rank, world, device=dev, store_path=store, timeout_s=c["timeout_s"])
+    cfg = get_config(TRAIN["arch"], n_layers=c["n_layers"])
+    model = build_model(cfg, remat=True)
+    opt = adamw.AdamWConfig(lr=c["lr"], warmup_steps=0, schedule="constant", weight_decay=0.0)
+    data = SyntheticLM(cfg.vocab, c["seq"], c["batch"], n_micro=1, seed=c["seed"])
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in data.batch(s).items()}
+               for s in range(c["steps"])]
+
+    def as_workers(b):  # (1, 4, T) -> the coded step's (R, 1, T)
+        return {k: v.reshape(world, -1, v.shape[-1]) for k, v in b.items()}
+
+    def sync():
+        torch.cuda.synchronize(dev)
+        dist.barrier(group)
+
+    out = dict(rank=rank, backend=dist.get_backend(group), params=cfg.n_params(),
+               layers=cfg.n_layers)
+    # Each all-reduce the steps make (collectives.all_reduce_tree), timed on
+    # the host's clock between two synchronisations.
+    ar_s, all_reduce_tree = [], collectives.all_reduce_tree
+
+    def timed_all_reduce(tree, group=None):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        all_reduce_tree(tree, group)
+        torch.cuda.synchronize(dev)
+        ar_s.append(time.perf_counter() - t0)
+        return tree
+
+    collectives.all_reduce_tree = timed_all_reduce
+    dp = make_train_step(model, opt, 1, pre_shaped=True, device=dev, group=group)
+    coded, code, (pats, ws) = make_coded_train_step(model, opt, world, n_parity=c["n_parity"],
+                                                    seed=0, device=dev, group=group)
+    # 1. Gradients at the init: the DP mean against the one-process step on
+    # the whole batch (rank 0), the coded sum against R times the DP mean.
+    params = model.init(c["seed"], device=dev)
+    g_dp, l_dp = dp.grads(params, batches[0])
+    if rank == 0:
+        g_one, l_one = accumulate_grads(model, params, batches[0])
+        out["loss_dp"], out["loss_one"] = float(l_dp), float(l_one)
+        out["grad_err"] = max(float((a - b).abs().max()) / float(b.abs().max())
+                              for a, b in zip(tree_leaves(g_dp), tree_leaves(g_one)))
+        del g_one
+    # The coded sum with no straggler (the parity weights 0) and with one
+    # (a worker's own gradient dropped, the parity's decode weight in).
+    w_one = _one_straggler(code, pats, ws, world)
+    for name, wv in (("sum_err", ws[0]), ("sum_err_one", w_one)):
+        g_c, l_c = coded.grads(params, as_workers(batches[0]), wv)
+        out[name] = max(float((a - world * b).abs().max()) / float((world * b).abs().max())
+                        for a, b in zip(tree_leaves(g_c), tree_leaves(g_dp)))
+        out["grad_bytes"] = sum(g.numel() * g.element_size() for g in tree_leaves(g_c))
+        del g_c
+        torch.cuda.empty_cache()
+    out["dropped"] = int(np.flatnonzero(w_one[:world] == 0)[0])
+    del g_dp
+    torch.cuda.empty_cache()
+    # 2. The path: 2 DP steps, then 2 coded steps from the same init, K4's
+    # counts reset just before each run.
+    for name in ("dp", "coded"):
+        if name == "coded":
+            params = model.init(c["seed"], device=dev)
+        state = adamw.init(params)
+        sync()
+        k4.flash_attention_cuda.launches = k4.flash_attention_bwd_cuda.launches = 0
+        losses, secs, first_ar = [], [], len(ar_s)
+        for s in range(c["steps"]):
+            sync()
+            t0 = time.perf_counter()
+            if name == "dp":
+                params, state, m = dp(params, state, batches[s])
+            else:
+                params, state, m = coded(params, state, as_workers(batches[s]), ws[0])
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize(dev)
+            secs.append(time.perf_counter() - t0)
+            if s == 0 and rank == 0:
+                if name == "dp":
+                    host = [p.to("cpu", copy=True) for p in tree_leaves(params)]
+                else:
+                    out["update_err"] = max(float((a.cpu() - b).abs().max())
+                                            for a, b in zip(tree_leaves(params), host))
+        out[name] = dict(losses=losses, step_s=secs, all_reduce_s=ar_s[first_ar:],
+                         fwd=k4.flash_attention_cuda.launches,
+                         bwd=k4.flash_attention_bwd_cuda.launches)
+        del params, state
+        torch.cuda.empty_cache()
+    # 3. Outside the counted runs: one coded step from the init with one
+    # straggler, against the first DP update.
+    params = model.init(c["seed"], device=dev)
+    params, state, _ = coded(params, adamw.init(params), as_workers(batches[0]), w_one)
+    if rank == 0:
+        out["update_err_one"] = max(float((a.cpu() - b).abs().max())
+                                    for a, b in zip(tree_leaves(params), host))
+        del host
+    del params, state
+    torch.cuda.empty_cache()
+    # Worker `rank`'s parity (the first k with k % R == rank): its forwards.
+    nbrs = [len(n) for k, n in enumerate(gradient_coding.parity_assignments(code))
+            if k % world == rank][:1]
+    out["coded_forwards"] = 1 + (nbrs[0] if nbrs else 0)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    dist.destroy_process_group()
+    return out
+
+
+def ranks_train(dev) -> dict:
+    """Training across 4 ``torch.distributed`` ranks spawned on the one
+    card (``launch.mesh.spawn_ranks``, a FileStore rendezvous), each with
+    phi4-mini at full width and 1 layer: the backend each rank took, the
+    DP gradient and loss against the one-process step, the coded gradient
+    sum and update against the uncoded ones, 2 DP and 2 coded steps with
+    their losses and times, the gradient all-reduce's time, and K4's
+    forward and backward launches in each rank, which must be exact.
+    Returns the launches summed over the ranks."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.launch import mesh
+
+    c = RANKS_TRAIN
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mesh.spawn_ranks(_ranks_train_rank, c["world"], str(dev), timeout_s=c["timeout_s"])
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    L, steps = r0["layers"], c["steps"]
+    loss_rel = abs(r0["loss_dp"] - r0["loss_one"]) / abs(r0["loss_one"])
+    for r in ranks:
+        ar = r["dp"]["all_reduce_s"] + r["coded"]["all_reduce_s"]
+        phase("ranks-train", rank=r["rank"], backend=r["backend"],
+              dp_losses=",".join(f"{v:.6f}" for v in r["dp"]["losses"]),
+              dp_step_s=",".join(f"{v:.3f}" for v in r["dp"]["step_s"]),
+              dp_all_reduce_s=",".join(f"{v:.3f}" for v in r["dp"]["all_reduce_s"]),
+              coded_losses=",".join(f"{v:.6f}" for v in r["coded"]["losses"]),
+              coded_step_s=",".join(f"{v:.3f}" for v in r["coded"]["step_s"]),
+              coded_all_reduce_s=",".join(f"{v:.3f}" for v in r["coded"]["all_reduce_s"]),
+              all_reduce_share=f"{sum(ar) / sum(r['dp']['step_s'] + r['coded']['step_s']):.3f}",
+              all_reduce_gbps=f"{r['grad_bytes'] / min(ar) / 1e9:.2f}",
+              k4_fwd=f"{r['dp']['fwd']}+{r['coded']['fwd']}",
+              k4_bwd=f"{r['dp']['bwd']}+{r['coded']['bwd']}",
+              coded_forwards=r["coded_forwards"], peak_gb=f"{r['peak_gb']:.2f}")
+    phase("ranks-train", arch=TRAIN["arch"], layers=L, params=r0["params"], world=c["world"],
+          backend=r0["backend"], staging="gloo's own (CUDA tensors given to all_reduce)",
+          global_batch=f"{c['batch']}x{c['seq']}", grad_gb=f"{r0['grad_bytes'] / 1e9:.3f}",
+          loss_dp=f"{r0['loss_dp']:.7f}", loss_one=f"{r0['loss_one']:.7f}",
+          loss_rel_diff=f"{loss_rel:.3e}", worst_leaf_rel_diff=f"{r0['grad_err']:.3e}",
+          coded_sum_rel_err=f"{max(r['sum_err'] for r in ranks):.3e}",
+          coded_update_err=f"{r0['update_err']:.3e}", straggler=r0["dropped"],
+          coded_sum_one_rel_err=f"{max(r['sum_err_one'] for r in ranks):.3e}",
+          coded_update_one_err=f"{r0['update_err_one']:.3e}", wall_s=f"{wall:.3f}",
+          loss_rtol=c["loss_rtol"], grad_tol=c["grad_tol"], sum_rtol=c["sum_rtol"],
+          update_tol=c["update_tol"])
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError("ranks sharing one card must run gloo")
+    if not loss_rel <= c["loss_rtol"]:
+        raise AssertionError(f"the DP loss differs by {loss_rel:.3e} from the one-process one")
+    if not r0["grad_err"] <= c["grad_tol"]:
+        raise AssertionError(f"the DP gradient misses the one-process one by {r0['grad_err']:.3e}")
+    for sfx, label in (("", "no straggler"), ("_one", "one straggler")):
+        if not max(r["sum_err" + sfx] for r in ranks) <= c["sum_rtol"]:
+            raise AssertionError(f"the coded gradient sum ({label}) misses R times the DP mean")
+        if not r0["update_err" + sfx] <= c["update_tol"]:
+            raise AssertionError(f"the coded update ({label}) misses the uncoded one by "
+                                 f"{r0['update_err' + sfx]:.3e}")
+    for r in ranks:
+        if not all(np.isfinite(v) for v in r["dp"]["losses"] + r["coded"]["losses"]):
+            raise AssertionError(f"rank {r['rank']}: a loss is not finite")
+        if r["dp"]["losses"] != r0["dp"]["losses"] or r["coded"]["losses"] != r0["coded"]["losses"]:
+            raise AssertionError(f"rank {r['rank']}'s losses differ from rank 0's")
+        want = {"dp": L * steps, "coded": L * steps * r["coded_forwards"]}
+        for name, calls in want.items():
+            if (r[name]["fwd"], r[name]["bwd"]) != (2 * calls, k4.BWD_LAUNCHES * calls):
+                raise AssertionError(
+                    f"rank {r['rank']} {name}: K4 launched {r[name]['fwd']} forwards and "
+                    f"{r[name]['bwd']} backward kernels, expected {2 * calls} and "
+                    f"{k4.BWD_LAUNCHES * calls}")
+    return dict(fwd=sum(r[n]["fwd"] for r in ranks for n in ("dp", "coded")),
+                bwd=sum(r[n]["bwd"] for r in ranks for n in ("dp", "coded")))
+
+
 def main() -> int:
     import torch
 
@@ -3167,6 +3555,8 @@ def main() -> int:
     # launch counts are reset inside, just before each shape's round trip),
     # then the rateless control plane with the decoder in the loop.
     lt = rateless_data_plane(dev)
+    lt["lt_decode"]["launches_by_path"] = {"rateless-data-plane": lt["lt_decode"]["launches"],
+                                           "data-plane": launches_collector}
     lt["lt_decode"]["launches"] += launches_collector  # K3 on both paths
     rateless_control_plane(dev)
 
@@ -3229,12 +3619,26 @@ def main() -> int:
                                   "ckpt-train": ckpt_launches["bwd"]}
     fa_bwd["family_shapes"] = [fa_bwd_family]
 
-    # 14. Every kernel of the paths.
+    # 14. The C3P paths over several devices and ranks (slice C5a): MAIN's
+    # coded matmul over 8 shards of the card (K1's and K3's counts reset
+    # just before the run), the sharded engine and fleet (no kernel), then
+    # training across 4 ranks on the card (K4's counts reset in each rank
+    # just before its steps).
+    shard_launches = shard_data_plane(dev)
+    engine_shard(dev)
+    rank_launches = ranks_train(dev)
+    lt["lt_decode"]["launches_by_path"]["shard-data-plane"] = shard_launches["k3"]
+    fa["launches_by_path"]["ranks-train"] = rank_launches["fwd"]
+    fa_bwd["launches_by_path"]["ranks-train"] = rank_launches["bwd"]
+
+    # 15. Every kernel of the paths.
     print(json.dumps({"kernels": [
         dict(name="coded_matmul", route="cuda",
              source="src/repro_torch/csrc/coded_matmul.cu",
              replaces="src/repro/kernels/coded_matmul/kernel.py:71",
-             launches=launches, **main_shape),
+             launches=launches, launches_by_path={"data-plane": launches,
+                                                  "shard-data-plane": shard_launches["k1"]},
+             **main_shape),
         dict(name="lt_encode", route="cuda", source="src/repro_torch/csrc/lt_encode.cu",
              replaces="src/repro/kernels/lt_encode/kernel.py:41", **lt["lt_encode"]),
         dict(name="lt_decode", route="cuda", source="src/repro_torch/csrc/lt_decode.cu",

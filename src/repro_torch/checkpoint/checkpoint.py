@@ -298,7 +298,7 @@ def _placement(dev) -> Optional[torch.device]:
     if type(dev).__module__.startswith("torch.distributed"):
         raise NotImplementedError(
             f"restore onto a {type(dev).__name__} (sharded placement across ranks) waits for "
-            "the multi-card slice of the port (C5); pass a device or a tree of devices")
+            "the multi-card slice of the port (C5b); pass a device or a tree of devices")
     raise TypeError(f"restore places leaves on a torch.device or a device name; got "
                     f"{type(dev).__name__}")
 

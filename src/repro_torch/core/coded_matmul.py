@@ -9,10 +9,13 @@ recovers y by peeling/dense decode.
 
 Port of ``repro.core.coded_matmul``.  ``plan_coded_matmul`` is copied
 verbatim (numpy RNG and rank checks), so the code, the placement and the
-validated seed equal the reference's.  On one GPU, :func:`run` is a single
-launch of the fused kernel over all coded blocks in shard-major placement
-order; the reference's ``shard_map`` mesh branch waits for a multi-GPU
-slice.
+validated seed equal the reference's.  Without a mesh, :func:`run` is a
+single launch of the fused kernel over all coded blocks in shard-major
+placement order.  With a mesh (:func:`repro_torch.launch.mesh.make_host_mesh`)
+it is the reference's ``shard_map`` branch: each device along the axis
+encodes and multiplies only its own blocks, one launch a device (the
+paper's helpers), and the results come back shard-major on the first
+device, where the collector runs.
 """
 
 from __future__ import annotations
@@ -115,15 +118,36 @@ def run(
     plan: CodedMatmulPlan,
     a: torch.Tensor,             # (rows, k_dim) source matrix
     x: torch.Tensor,             # (k_dim, n_dim)
+    mesh=None,
+    axis: str = "model",
     use_kernel: Optional[bool] = None,
 ) -> torch.Tensor:
     """Compute all coded block products, laid out shard-major:
     out[s*Bp+i] = (G A)[placement[s, i]] @ x, shape (S*Bp*bm, n_dim).
 
-    One call of the fused coded matmul over every shard's blocks (the
-    kernel on CUDA tensors, its plain version on CPU tensors)."""
+    Without a mesh, one call of the fused coded matmul over every shard's
+    blocks (the kernel on CUDA tensors, its plain version on CPU tensors).
+    With one, the coded blocks split evenly over the devices along
+    ``axis`` (shard s on the s-th device when the axis has ``n_shards``
+    of them): each device gets A and X (the same tensors where they are
+    already there) and computes only its blocks in one call; the pieces
+    are joined in order on the first device."""
     idx, weights = device_blocks(plan, a)
-    return coded_matmul_op(a, x, idx, weights, bm=plan.bm, use_kernel=use_kernel)
+    if mesh is None:
+        return coded_matmul_op(a, x, idx, weights, bm=plan.bm, use_kernel=use_kernel)
+    devs = mesh.axis_devices(axis)
+    rows = idx.shape[0]
+    if rows % len(devs):
+        raise ValueError(f"{rows} coded blocks do not split over the {len(devs)} devices of "
+                         f"mesh axis {axis!r}")
+    per = rows // len(devs)
+    parts = []
+    for d, dev in enumerate(devs):
+        blocks = slice(d * per, (d + 1) * per)
+        parts.append(coded_matmul_op(a.to(dev), x.to(dev), idx[blocks].to(dev),
+                                     weights[blocks].to(dev), bm=plan.bm,
+                                     use_kernel=use_kernel))
+    return torch.cat([p.to(devs[0]) for p in parts])
 
 
 def recover(

@@ -21,7 +21,9 @@ dynamics) that the reference drew and compare the traces.  Under a
 feedback-delay line (:mod:`repro_torch.core.transport`): the policy hooks
 see observed instants, the trace stays physical.  ``Engine.run_fleet`` runs
 T tenants over one shared helper pool (:mod:`repro_torch.core.fleet`).
-``shard=True`` waits for a second card (ROADMAP).
+``Engine(shard=True)`` splits each batch's reps over a list of devices
+(several cards, or one card several times) and joins the slices: per-rep
+lanes never communicate, so the results are bitwise the unsharded run's.
 
 Typical usage::
 
@@ -378,10 +380,20 @@ class Tables:
 
     def to(self, device) -> "Tables":
         """The same tables (and dynamics) on ``device``."""
-        moved = {f.name: getattr(self, f.name).to(device)
-                 for f in dataclasses.fields(self) if f.name != "dyn"}
-        dyn = None if self.dyn is None else {k: v.to(device) for k, v in self.dyn.items()}
-        return Tables(**moved, dyn=dyn)
+        return _map_tables(self, lambda t: t.to(device))
+
+    def take(self, reps: torch.Tensor) -> "Tables":
+        """The reps ``reps`` (an index tensor on the tables' device)."""
+        return _map_tables(self, lambda t: t.index_select(0, reps))
+
+
+def _map_tables(tables, fn):
+    """``fn`` over every tensor of a :class:`Tables` or :class:`FleetTables`
+    (each leads with the rep dimension), dynamics included."""
+    moved = {f.name: fn(getattr(tables, f.name))
+             for f in dataclasses.fields(tables) if f.name != "dyn"}
+    dyn = None if tables.dyn is None else {k: fn(v) for k, v in tables.dyn.items()}
+    return type(tables)(**moved, dyn=dyn)
 
 
 def draw_tables(gen: torch.Generator, cfg, reps: int, R: int, M: int) -> Tables:
@@ -474,10 +486,11 @@ class FleetTables:
 
     def to(self, device) -> "FleetTables":
         """The same tables (and dynamics) on ``device``."""
-        moved = {f.name: getattr(self, f.name).to(device)
-                 for f in dataclasses.fields(self) if f.name != "dyn"}
-        dyn = None if self.dyn is None else {k: v.to(device) for k, v in self.dyn.items()}
-        return FleetTables(**moved, dyn=dyn)
+        return _map_tables(self, lambda t: t.to(device))
+
+    def take(self, reps: torch.Tensor) -> "FleetTables":
+        """The reps ``reps`` (an index tensor on the tables' device)."""
+        return _map_tables(self, lambda t: t.index_select(0, reps))
 
 
 def draw_fleet_tables(gen: torch.Generator, cfg, fleet, reps: int, R: int,
@@ -690,6 +703,30 @@ class FleetRunResult:
         )
 
 
+def _simulate_sharded(simulate_fn, tables, devices, home: torch.device) -> Dict[str, torch.Tensor]:
+    """``simulate_fn`` over the reps of ``tables`` split evenly over
+    ``devices``, joined in rep order on ``home``.  The batch is padded to a
+    multiple of the device count by repeating its last rep (the
+    reference's ``_sim_batch_sharded`` pads keys so), and the padding is
+    dropped after the join.  Every output leads with the slice's reps (or
+    with reps x tenants, rep-major)."""
+    B = tables.mu.shape[0]
+    n = len(devices)
+    per = -(-B // n)
+    parts = []
+    for d, dev in enumerate(devices):
+        reps = torch.arange(d * per, (d + 1) * per, device=tables.mu.device).clamp_max(B - 1)
+        parts.append(simulate_fn(tables.take(reps).to(dev)))
+    out = {}
+    for k in parts[0]:
+        rows = parts[0][k].shape[0]
+        if rows % per:
+            raise ValueError(f"output {k!r} of a {per}-rep slice has {rows} rows")
+        joined = torch.cat([p[k].to(home) for p in parts])
+        out[k] = joined[: B * (rows // per)]
+    return out
+
+
 def _generator(seed: Union[int, torch.Generator], device) -> torch.Generator:
     if isinstance(seed, torch.Generator):
         if seed.device.type != device.type:
@@ -709,24 +746,48 @@ class Engine:
     helper draw comes first, so it is unchanged — until every rep is
     certified or the cap is hit.  ``run_fleet`` does the same for T tenants
     sharing one pool.
+
+    With ``shard=True`` (or ``run(..., shard=True)``) the reps are split
+    over ``devices`` (default: every local device of the engine's type;
+    ``["cuda:0"] * 4`` runs four slices on one card), as the reference
+    splits its keys over a 'data' mesh: the tables are drawn once on the
+    engine's device from the same generator state as the unsharded run,
+    each device simulates its slice, and the slices are joined on the
+    engine's device.  Certification is decided over the joined batch, so
+    every slice runs the unsharded run's horizon and the results are
+    bitwise the unsharded run's.
     """
 
-    def __init__(self, device=None, shard: bool = False):
-        if shard:
-            raise NotImplementedError(
-                "shard=True waits for a second card (ROADMAP: multi-GPU "
-                "shard paths)")
+    def __init__(self, device=None, shard: bool = False, devices=None):
         self.device = _device.resolve(device)
+        self.shard = bool(shard)
+        self.devices = None if devices is None else [torch.device(d) for d in devices]
+
+    def _simulator(self, simulate_fn, shard: Optional[bool], devices):
+        """``simulate_fn`` itself, or its sharded run over the devices."""
+        if not (self.shard if shard is None else shard):
+            return simulate_fn
+        devs = self.devices if devices is None else [torch.device(d) for d in devices]
+        if devs is None:
+            from ..parallel import sharding
+            devs = (list(sharding.data_mesh().devices) if self.device.type == "cuda"
+                    else [self.device])
+        if not devs:
+            raise ValueError("shard=True needs at least one device")
+        return lambda tables: _simulate_sharded(simulate_fn, tables, devs, self.device)
 
     def run(self, cfg, policy, reps: int, R: int, *,
             seed: Union[int, torch.Generator] = 0,
-            M_override: Optional[int] = None) -> RunResult:
+            M_override: Optional[int] = None, shard: Optional[bool] = None,
+            devices=None) -> RunResult:
         """Run ``policy`` (a registry name or Policy instance) over ``reps``
         reps drawn from ``seed`` (an int or a ``torch.Generator`` on the
-        engine's device); returns a :class:`RunResult`."""
+        engine's device); returns a :class:`RunResult`.  ``shard`` and
+        ``devices`` override the engine's own for this run."""
         policy = _as_policy(policy)
         _check_R(R)
         _check_reps(reps)
+        run_tables = self._simulator(lambda t: simulate(t, cfg, R, policy), shard, devices)
         gen = _generator(seed, self.device)
         state = gen.get_state()
         kk = R + cfg.K(R)
@@ -735,7 +796,7 @@ class Engine:
                        M_override)
         for _ in range(8):
             gen.set_state(state)
-            out = simulate(draw_tables(gen, cfg, reps, R, M), cfg, R, policy)
+            out = run_tables(draw_tables(gen, cfg, reps, R, M))
             if bool(out["valid"].all()) or M >= cap or M_override is not None:
                 break
             M = min(M * 2, cap)
@@ -745,7 +806,8 @@ class Engine:
 
     def run_fleet(self, cfg, policy, reps: int, R: int, *, fleet=None,
                   seed: Union[int, torch.Generator] = 0,
-                  M_override: Optional[int] = None) -> FleetRunResult:
+                  M_override: Optional[int] = None, shard: Optional[bool] = None,
+                  devices=None) -> FleetRunResult:
         """Multi-tenant event-clock run: ``fleet.n_tasks`` concurrent tasks
         contend for the ``cfg.N`` shared helpers under the fleet's service
         discipline and admission rule.
@@ -754,7 +816,9 @@ class Engine:
         one task, all helpers, FIFO); at one task with all helpers the run
         is ``Engine.run`` bit for bit, for every registered policy.  The
         shared horizon doubles as in :meth:`run` until every (rep, task)
-        completion is certified or the cap is hit."""
+        completion is certified or the cap is hit.  ``shard`` and
+        ``devices`` split the reps as in :meth:`run` (every tenant of a rep
+        lives on that rep's device)."""
         from . import fleet as fleet_mod
 
         policy = _as_policy(policy)
@@ -773,6 +837,8 @@ class Engine:
                 f"cfg.N={cfg.N} helpers in the pool")
         _check_R(R)
         _check_reps(reps)
+        run_tables = self._simulator(lambda t: simulate_fleet(t, cfg, R, policy, fleet), shard,
+                                     devices)
         gen = _generator(seed, self.device)
         state = gen.get_state()
         kk = R + cfg.K(R)
@@ -781,8 +847,7 @@ class Engine:
                        M_override)
         for _ in range(8):
             gen.set_state(state)
-            out = simulate_fleet(draw_fleet_tables(gen, cfg, fleet, reps, R, M), cfg, R,
-                                 policy, fleet)
+            out = run_tables(draw_fleet_tables(gen, cfg, fleet, reps, R, M))
             if bool(out["valid"].all()) or M >= cap or M_override is not None:
                 break
             M = min(M * 2, cap)

@@ -465,44 +465,72 @@ def attention_bwd_3xtf32(
     qp, dop, lsep, deltap = packed(qg), packed(dog), packed(lseg), packed(deltag)
     pos = q_offset + torch.arange(n_rows, device=dev) // group
 
-    # Launch 1: dQ over query tiles.
-    dqp = torch.zeros((B, Hkv, n_rows, D), dtype=torch.float32, device=dev)
-    for i0 in range(0, n_rows, 128):
-        rows = slice(i0, min(i0 + 128, n_rows))
-        p_lo, p_hi = int(pos[rows][0]), int(pos[rows][-1])
-        k_lo = max(0, p_lo - window + 1) if window is not None else 0
-        k_hi = min(valid, p_hi + 1) if causal else valid
-        q_pos = pos[rows][:, None]
-        for k0 in range(k_lo, k_hi, 32):
-            kt, vt = kf[:, :, k0:k0 + 32], vf[:, :, k0:k0 + 32]
-            k_pos = torch.arange(k0, k0 + kt.shape[2], device=dev)[None, :]
-            mask = pair_mask(q_pos, k_pos) & (k_pos < k_hi)
-            x, dtanh = capped(product(qp[:, :, rows], kt.transpose(-1, -2)))
-            dp = product(dop[:, :, rows], vt.transpose(-1, -2))
-            p = torch.where(mask, torch.exp(x - lsep[:, :, rows, None]), 0.0)
-            ds = torch.where(mask, p * (dp - deltap[:, :, rows, None]) * dtanh, 0.0)
-            dqp[:, :, rows] += product(ds, kt)
+    # The CTAs of a launch are independent: each loop below runs every CTA's
+    # j-th tile at once (a CTA past its last tile adds exact zeros), so each
+    # CTA sums its tiles in its own order, as the kernel does.
+    def tiles(lo: torch.Tensor, hi: torch.Tensor, j: int, width: int, limit: int) -> tuple:
+        """Each CTA's j-th tile of ``width`` indices from ``lo``: the indices
+        clamped into [0, limit) and whether each lies below the CTA's ``hi``."""
+        idx = lo[:, None] + j * width + torch.arange(width, device=dev)[None, :]
+        return idx.clamp(0, max(limit - 1, 0)), idx < hi[:, None]
+
+    # Launch 1: dQ over query tiles of 128 packed rows, each over tiles of
+    # 32 keys from its first visible key.
+    n_cta = -(-n_rows // 128)
+    first = pos[torch.arange(n_cta, device=dev) * 128]
+    last = pos[torch.clamp(torch.arange(1, n_cta + 1, device=dev) * 128, max=n_rows) - 1]
+    k_lo = (first - window + 1).clamp_min(0) if window is not None else torch.zeros_like(first)
+    k_hi = (last + 1).clamp_max(valid) if causal else torch.full_like(first, valid)
+    pad = n_cta * 128 - n_rows
+
+    def by_cta(x: torch.Tensor) -> torch.Tensor:  # (B, Hkv, n_rows, ...) -> CTA tiles
+        x = torch.nn.functional.pad(x, (0, 0) * (x.dim() - 3) + (0, pad))
+        return x.reshape(B, Hkv, n_cta, 128, *x.shape[3:])
+
+    qc, doc_, lsec, deltac = by_cta(qp), by_cta(dop), by_cta(lsep), by_cta(deltap)
+    q_pos = by_cta(pos.expand(B, Hkv, n_rows))[0, 0][..., None]          # (n_cta, 128, 1)
+    dqc = torch.zeros((B, Hkv, n_cta, 128, D), dtype=torch.float32, device=dev)
+    n_j = int(((k_hi - k_lo).clamp_min(0) + 31).div(32, rounding_mode="floor").max()) if valid else 0
+    for j in range(n_j):
+        kidx, live = tiles(k_lo, k_hi, j, 32, valid)
+        kt, vt = kf[:, :, kidx], vf[:, :, kidx]                          # (B, Hkv, n_cta, 32, D)
+        mask = pair_mask(q_pos, kidx[:, None, :]) & live[:, None, :]
+        x, dtanh = capped(product(qc, kt.transpose(-1, -2)))
+        dp = product(doc_, vt.transpose(-1, -2))
+        p = torch.where(mask, torch.exp(x - lsec[..., None]), 0.0)
+        ds = torch.where(mask, p * (dp - deltac[..., None]) * dtanh, 0.0)
+        dqc += product(ds, kt)
+    dqp = dqc.reshape(B, Hkv, n_cta * 128, D)[:, :, :n_rows]
     dq = (dqp * scale).reshape(B, Hkv, Tq, group, D).transpose(2, 3).reshape(B, Hq, Tq, D)
 
-    # Launch 2: dK and dV over key blocks.
+    # Launch 2: dK and dV over blocks of 64 keys, per head of the group, over
+    # tiles of 32 query positions from the block's first visible one.
+    n_blk = -(-valid // 64)
+    k0 = torch.arange(n_blk, device=dev) * 64
+    nk = (valid - k0).clamp_max(64)
+    t_lo = (k0 - q_offset).clamp_min(0) if causal else torch.zeros_like(k0)
+    t_hi = ((k0 + nk - 1 + window - q_offset).clamp_max(Tq) if window is not None
+            else torch.full_like(k0, Tq))
+    kb = torch.nn.functional.pad(kf, (0, 0, 0, n_blk * 64 - valid)).reshape(B, Hkv, n_blk, 64, D)
+    vb = torch.nn.functional.pad(vf, (0, 0, 0, n_blk * 64 - valid)).reshape(B, Hkv, n_blk, 64, D)
+    k_pos = (k0[:, None] + torch.arange(64, device=dev)[None, :])[..., None]  # (n_blk, 64, 1)
+    dkb = torch.zeros((B, Hkv, n_blk, 64, D), dtype=torch.float32, device=dev)
+    dvb = torch.zeros_like(dkb)
+    n_j = int(((t_hi - t_lo).clamp_min(0) + 31).div(32, rounding_mode="floor").max()) if valid else 0
+    for g in range(group):
+        for j in range(n_j):
+            tidx, live = tiles(t_lo, t_hi, j, 32, Tq)
+            qt, dot = qg[:, :, g][:, :, tidx], dog[:, :, g][:, :, tidx]  # (B, Hkv, n_blk, 32, D)
+            mask = pair_mask(q_offset + tidx[:, None, :], k_pos) & live[:, None, :]
+            x, dtanh = capped(product(kb, qt.transpose(-1, -2)))
+            dpt = product(vb, dot.transpose(-1, -2))
+            p = torch.where(mask, torch.exp(x - lseg[:, :, g][:, :, tidx][..., None, :]), 0.0)
+            ds = torch.where(mask, p * dtanh * (dpt - deltag[:, :, g][:, :, tidx][..., None, :]),
+                             0.0)
+            dvb += product(p, dot)
+            dkb += product(ds, qt)
     dk = torch.zeros((B, Hkv, Tk, D), dtype=torch.float32, device=dev)
     dv = torch.zeros_like(dk)
-    for k0 in range(0, valid, 64):
-        nk = min(64, valid - k0)
-        t_lo = max(0, k0 - q_offset) if causal else 0
-        t_hi = min(Tq, k0 + nk - 1 + window - q_offset) if window is not None else Tq
-        kt, vt = kf[:, :, k0:k0 + nk], vf[:, :, k0:k0 + nk]
-        k_pos = torch.arange(k0, k0 + nk, device=dev)[:, None]
-        for g in range(group):
-            for t0 in range(t_lo, t_hi, 32):
-                ts = slice(t0, min(t0 + 32, Tq))
-                qt, dot = qg[:, :, g, ts], dog[:, :, g, ts]
-                mask = pair_mask(q_offset + torch.arange(ts.start, ts.stop, device=dev)[None, :],
-                                 k_pos)
-                x, dtanh = capped(product(kt, qt.transpose(-1, -2)))
-                dpt = product(vt, dot.transpose(-1, -2))
-                p = torch.where(mask, torch.exp(x - lseg[:, :, g, None, ts]), 0.0)
-                ds = torch.where(mask, p * dtanh * (dpt - deltag[:, :, g, None, ts]), 0.0)
-                dv[:, :, k0:k0 + nk] += product(p, dot)
-                dk[:, :, k0:k0 + nk] += product(ds, qt)
+    dk[:, :, :valid] = dkb.reshape(B, Hkv, n_blk * 64, D)[:, :, :valid]
+    dv[:, :, :valid] = dvb.reshape(B, Hkv, n_blk * 64, D)[:, :, :valid]
     return dq.to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)

@@ -11,15 +11,27 @@ around a synchronise, and tokens per second.  Step times feed a
 ``CCPScheduler`` as the reference's heartbeat telemetry does.
 ``--smoke --device cpu`` trains the smoke config on the CPU.
 
-``--coded-dp`` runs the coded data-parallel step (R-of-(R+K) gradient
-aggregation) with R workers = the data size of ``--mesh``, in turn on the
-one device.  ``--ckpt DIR`` saves ``{"params", "opt"}`` every
-``--ckpt-every`` steps in the background (``checkpoint.AsyncCheckpointer``,
-the reference's format); ``--resume`` restores the latest step there into
-the model's tensors and continues the loop from it.  Not ported: a plain
-data- or model-parallel ``--mesh`` above 1 (it waits for a second card);
-``--devices``, the reference's XLA flag that forces host devices, has no
-counterpart and is ignored with a note.
+``--mesh D,1`` with D > 1 trains across D ``torch.distributed`` ranks, one
+process each, started by ``torchrun`` (``WORLD_SIZE`` must be D; or by a
+caller that already initialised the process group)::
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch phi4-mini-3.8b --mesh 4,1 [--coded-dp] ...
+
+Each rank builds the same weights from ``--seed``, takes its shard of the
+same global batch and applies the same averaged update (data parallel);
+``--coded-dp`` makes rank w worker w of the coded step (R-of-(R+K)
+gradient aggregation, R = D).  The ranks' step times feed the
+``CCPScheduler`` as the reference's heartbeat telemetry does; only rank 0
+prints and saves.  Without a process group, ``--coded-dp`` runs the D
+workers in turn on the one device.  ``--ckpt DIR`` saves ``{"params",
+"opt"}`` every ``--ckpt-every`` steps in the background
+(``checkpoint.AsyncCheckpointer``, the reference's format); ``--resume``
+restores the latest step there into the model's tensors and continues the
+loop from it.  A model axis above 1 (``--mesh D,M``, M > 1: tensor
+parallelism on DTensor) waits for slice C5b of the port.  ``--devices``, the
+reference's XLA flag that forces host devices for its mesh, is ignored with
+a note: the port's data axis is ranks, ``torchrun --nproc-per-node D``.
 ``REPRO_TRAIN_OVERRIDES`` (``key=int,...``) overrides config fields, as in
 the reference.
 """
@@ -42,7 +54,8 @@ def _parse_args(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--mesh", default="1,1", help="data,model axis sizes")
     ap.add_argument("--devices", type=int, default=0,
-                    help="the reference's forced XLA host devices: no counterpart here")
+                    help="the reference's forced XLA host devices: ignored (the port's "
+                         "data axis is torchrun's ranks)")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--resume", action="store_true")
@@ -55,38 +68,59 @@ def _parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def run(argv=None) -> dict:
+def run(argv=None, group=None) -> dict:
     """Train as ``main`` does; returns the final loss, the per-step
     history of the steps run (loss, grad_norm, lr, step ms, tokens/s and,
     of the first, each gradient leaf's sum of squares), the config, the
     device, the step the run started from, and with ``--ckpt`` the
     checkpoint's seconds (``restore_s`` of a resume; ``snapshot_s``, the
     loop's wait for the host copy, and ``write_s``, the background write,
-    of the last save)."""
+    of the last save).  ``group``: the data group of ``--mesh D,1``'s D
+    ranks (default: the process group's world, started from ``torchrun``'s
+    environment if need be)."""
     args = _parse_args(argv)
     data_n, model_n = (int(x) for x in args.mesh.split(","))
-    if model_n > 1 or (data_n > 1 and not args.coded_dp):
+    if model_n > 1:
         raise NotImplementedError(
-            f"--mesh {args.mesh}: a sharded mesh needs a second card (the multi-GPU slice of "
-            "the port); --coded-dp runs the data axis's workers in turn on one device")
+            f"--mesh {args.mesh}: a model axis above 1 (tensor parallelism on DTensor) waits "
+            "for slice C5b of the port; --mesh D,1 trains data parallel across D ranks")
     if args.devices:
         print(f"note: --devices {args.devices} forces XLA host devices in the reference; "
-              "the port has no counterpart and ignores it", file=sys.stderr)
+              "the port ignores it: --mesh D,1 runs across D ranks (torchrun "
+              "--nproc-per-node D)", file=sys.stderr)
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from repro_torch import _device
     from repro_torch import checkpoint as ck
     from repro_torch.configs import get_config
     from repro_torch.core.scheduler import CCPScheduler
     from repro_torch.data import SyntheticLM
+    from repro_torch.launch import mesh
     from repro_torch.models import build_model
     from repro_torch.optim import adamw
     from repro_torch.runtime.train_loop import make_coded_train_step, make_train_step
 
-    dev = _device.resolve(args.device)
+    rank = 0
+    if group is None and data_n > 1 and (dist.is_initialized()
+                                         or int(os.environ.get("WORLD_SIZE", 1)) > 1):
+        group = dist.group.WORLD if dist.is_initialized() else mesh.init_ranks(device=args.device)
+    if group is not None:
+        rank = dist.get_rank(group)
+        if dist.get_world_size(group) != data_n:
+            raise ValueError(f"--mesh {args.mesh} needs {data_n} ranks, the data group has "
+                             f"{dist.get_world_size(group)}")
+        dev = mesh.rank_device(args.device, dist.get_rank())
+    elif data_n > 1 and not args.coded_dp:
+        raise ValueError(f"--mesh {args.mesh} trains across {data_n} ranks: start it under "
+                         f"torchrun --nproc-per-node {data_n} (or add --coded-dp to run the "
+                         "workers in turn on one device)")
+    else:
+        dev = _device.resolve(args.device)
     _device.full_fp32_matmuls(dev)
+    say = print if rank == 0 else (lambda *a, **k: None)
     overrides = {}
     for kv in filter(None, os.environ.get("REPRO_TRAIN_OVERRIDES", "").split(",")):
         k, v = kv.split("=")
@@ -100,7 +134,7 @@ def run(argv=None) -> dict:
     data = SyntheticLM(cfg.vocab, args.seq, args.batch, n_micro=args.n_micro, seed=args.seed)
     start, ckpt, ckpt_times = 0, None, {}
     if args.ckpt:
-        ckpt = ck.AsyncCheckpointer(args.ckpt)
+        ckpt = ck.AsyncCheckpointer(args.ckpt) if rank == 0 else None
         if args.resume and ck.latest_step(args.ckpt) is not None:
             t0 = time.perf_counter()
             state, meta = ck.restore(args.ckpt, None, {"params": params, "opt": opt_state})
@@ -109,12 +143,13 @@ def run(argv=None) -> dict:
             ckpt_times["restore_s"] = time.perf_counter() - t0
             params, opt_state = state["params"], state["opt"]
             start = int(meta.get("step", 0))
-            print(f"resumed from step {start}", flush=True)
+            say(f"resumed from step {start}", flush=True)
 
     sched = CCPScheduler(n_workers=data_n)
     if args.coded_dp:
         step_fn, code, (pats, ws) = make_coded_train_step(model, opt_cfg, data_n,
-                                                          seed=args.seed, device=dev)
+                                                          seed=args.seed, device=dev,
+                                                          group=group)
         w0 = ws[0]
 
         def run_step(params, opt_state, batch):
@@ -123,7 +158,8 @@ def run(argv=None) -> dict:
             lab = batch["labels"].reshape(data_n, -1, batch["labels"].shape[-1])
             return step_fn(params, opt_state, {"tokens": tok, "labels": lab}, w0)
     else:
-        run_step = make_train_step(model, opt_cfg, args.n_micro, pre_shaped=True, device=dev)
+        run_step = make_train_step(model, opt_cfg, args.n_micro, pre_shaped=True, device=dev,
+                                   group=group)
 
     def sync():
         if dev.type == "cuda":
@@ -139,7 +175,13 @@ def run(argv=None) -> dict:
         sync()
         dt = time.perf_counter() - t0
         loss = float(metrics["loss"])
-        sched.observe_step(np.full(data_n, dt))
+        if group is None:
+            sched.observe_step(np.full(data_n, dt))
+        else:  # every rank's own step time: the workers' heartbeats
+            times = torch.zeros(data_n, dtype=torch.float64, device=dev)
+            times[rank] = dt
+            dist.all_reduce(times, group=group)
+            sched.observe_step(times.cpu().numpy())
         rec = dict(step=step, loss=loss, grad_norm=float(metrics["grad_norm"]),
                    lr=float(metrics["lr"]), ms=dt * 1e3,
                    tokens_per_s=args.batch * args.seq / dt)
@@ -147,9 +189,9 @@ def run(argv=None) -> dict:
             rec["grad_leaf_sq"] = metrics["grad_leaf_sq"].cpu().numpy()
         history.append(rec)
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"step {step:5d} loss {loss:.4f} gnorm {rec['grad_norm']:.3f} "
-                  f"lr {rec['lr']:.2e} {dt * 1e3:.0f}ms {rec['tokens_per_s']:.0f} tok/s",
-                  flush=True)
+            say(f"step {step:5d} loss {loss:.4f} gnorm {rec['grad_norm']:.3f} "
+                f"lr {rec['lr']:.2e} {dt * 1e3:.0f}ms {rec['tokens_per_s']:.0f} tok/s",
+                flush=True)
         if ckpt and (step + 1) % args.ckpt_every == 0:
             ckpt.save_async(step + 1, {"params": params, "opt": opt_state},
                             metadata={"step": step + 1})
@@ -157,9 +199,11 @@ def run(argv=None) -> dict:
         ckpt.wait()
         ckpt_times.update(snapshot_s=ckpt.snapshot_s, write_s=ckpt.write_s)
     wall = time.perf_counter() - t_start
-    print(f"done: {args.steps - start} steps in {wall:.1f}s on {dev}, final loss {loss:.4f}")
+    say(f"done: {args.steps - start} steps in {wall:.1f}s on {dev}"
+        + (f" x {data_n} ranks" if group is not None else "") + f", final loss {loss:.4f}")
     return dict(loss=loss, history=history, cfg=cfg, device=dev, wall_s=wall,
-                sched_e_beta=sched.e_beta, start=start, ckpt=ckpt_times)
+                sched_e_beta=sched.e_beta, start=start, ckpt=ckpt_times, rank=rank,
+                ranks=1 if group is None else data_n)
 
 
 def main(argv=None):

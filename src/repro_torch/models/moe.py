@@ -16,7 +16,7 @@ order of its choices, so two runs are bitwise equal.
 
 ``set_moe_opts``: ``constrain`` is the reference's GSPMD sharding hint and
 does nothing on one card; ``a2a_mesh`` (the ``shard_map`` formulation)
-waits for the port's multi-rank slice; ``count_drops`` adds the
+waits for slice C5b of the port (the tensor-parallel LM); ``count_drops`` adds the
 assignments dropped at capacity to ``moe_block.dropped`` (a device tensor,
 so no host sync) at every call.
 """
@@ -36,8 +36,8 @@ MOE_OPTS = {"constrain": False, "a2a_mesh": None, "count_drops": False}
 def set_moe_opts(constrain: bool = False, a2a_mesh=None, count_drops: bool = False) -> None:
     if a2a_mesh is not None:
         raise NotImplementedError(
-            "the shard_map all-to-all MoE (moe_a2a) waits for slice C5 of the port "
-            "(the multi-rank paths, ROADMAP queue 1)")
+            "the shard_map all-to-all MoE (moe_a2a) waits for slice C5b of the port "
+            "(the tensor-parallel LM across ranks, ROADMAP queue 1)")
     MOE_OPTS.update(constrain=bool(constrain), a2a_mesh=None, count_drops=bool(count_drops))
 
 

@@ -3,16 +3,20 @@
 
 ``make_train_step`` builds the production step: gradient accumulation over
 microbatches (an fp32 accumulator), remat per layer when the model was
-built with it, AdamW update.
+built with it, AdamW update.  Given a data group of ``torch.distributed``
+ranks (:func:`repro_torch.launch.mesh.init_ranks`), each rank runs its
+shard of the global batch and the gradients are averaged over the group,
+as the reference's GSPMD step over a 'data' mesh axis.
 
 ``make_coded_train_step`` is the paper's contribution wired into DP: every
 worker computes its own microbatch gradient plus (round-robin) one parity
 gradient — the gradient of a sparse sum of neighbour microbatches — and
 aggregation is a *weighted* sum whose weights (a tiny input) realize the
-R-of-(R+K) decode for the current survivor set.  On one card the R workers
-run in turn and the reference's weighted ``psum`` over the mesh's data axis
-becomes the same weighted sum in worker order; the ``shard_map`` form
-across cards waits for the multi-GPU slice.
+R-of-(R+K) decode for the current survivor set.  Given a data group of R
+ranks, rank w is worker w and the sum is ``parallel.collectives.coded_psum``
+over the group (the reference's weighted ``psum`` over the data axis);
+without one the R workers run in turn and the sum is taken in worker
+order.
 
 Gradients come from ``torch.autograd.grad`` on detached aliases of the
 parameter leaves, so the caller's tensors need not require grad and carry
@@ -25,12 +29,14 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import _device
 from ..core import gradient_coding
 from ..models.common import tree_leaves, tree_map
 from ..models.model import Model
 from ..optim import adamw
+from ..parallel import collectives
 
 PyTree = Any
 
@@ -47,6 +53,20 @@ def _reshape_micro(batch: Dict[str, torch.Tensor], n_micro: int):
         return x.reshape(n_micro, b // n_micro, *x.shape[1:])
 
     return {k: r(v) for k, v in batch.items()}
+
+
+def _rank_slice(micro: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """This rank's shard of every microbatch of a (n_micro, mb, ...) batch:
+    rows [r * mb / D, (r + 1) * mb / D) of each, for rank r of D."""
+    r, D = dist.get_rank(group), dist.get_world_size(group)
+
+    def one(x):
+        mb = x.shape[1]
+        if mb % D:
+            raise ValueError(f"a microbatch of {mb} does not split over {D} ranks")
+        return x[:, r * (mb // D):(r + 1) * (mb // D)]
+
+    return {k: one(v) for k, v in micro.items()}
 
 
 def _device_of(params: PyTree) -> torch.device:
@@ -96,6 +116,7 @@ def make_train_step(
     n_microbatches: int = 1,
     pre_shaped: bool = False,
     device=None,
+    group=None,
 ) -> Callable:
     """(params, opt_state, batch) -> (params', opt_state', metrics), the
     parameters and moments updated in place.
@@ -106,17 +127,36 @@ def make_train_step(
     parameters must be there, and the batch arrays (numpy or tensors) go
     there.  ``metrics``: ``loss`` (a scalar tensor on that device) and those
     of ``adamw.apply``.
+
+    ``group``: a data group of D ranks.  Every rank is given the same global
+    batch and takes its shard of each microbatch (``mb / D`` rows); the
+    ranks' mean gradients and losses are summed over the group in one
+    bucketed all-reduce and divided by D, so every rank applies the same
+    update, the one-process step's on the whole batch.
+    ``train_step.grads(params, batch)`` returns that gradient and loss
+    without a step.
     """
     dev = _device.resolve(device)
 
-    def train_step(params, opt_state, batch):
+    def step_grads(params, batch):
         b = _as_tensors(batch, _on(params, dev))
         mb = b if pre_shaped else _reshape_micro(b, n_microbatches)
+        if group is not None:
+            mb = _rank_slice(mb, group)
         grads, loss = accumulate_grads(model, params, mb)
+        if group is not None:
+            D = dist.get_world_size(group)
+            collectives.all_reduce_tree((grads, loss), group)
+            grads, loss = tree_map(lambda g: g.div_(D), grads), loss / D
+        return grads, loss
+
+    def train_step(params, opt_state, batch):
+        grads, loss = step_grads(params, batch)
         params, opt_state, metrics = adamw.apply(opt_cfg, params, grads, opt_state)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
+    train_step.grads = step_grads
     return train_step
 
 
@@ -141,9 +181,11 @@ def make_coded_train_step(
     n_parity: Optional[int] = None,
     seed: int = 0,
     device=None,
+    group=None,
 ):
     """Coded-DP training step over ``n_workers`` (R) workers, run in turn
-    on ``device`` (as in :func:`make_train_step`).
+    on ``device`` (as in :func:`make_train_step`), or with ``group`` (a
+    data group of R ranks) rank w as worker w.
 
     Returns (train_step, code, weight_table) where
       train_step(params, opt_state, batch, weights) and
@@ -155,9 +197,16 @@ def make_coded_train_step(
       sum_w (weights[w] g_w + weights[R + k_w] g_parity_w) / R.
     ``train_step.grads(params, batch, weights)`` returns that gradient
     (before the division by R) and the weighted loss sum, without a step.
+    With a group every rank gets the whole batch and the weights, computes
+    worker w's two terms and ``coded_psum`` sums them over the group; every
+    rank then applies the same update.
     """
     dev = _device.resolve(device)
     R = int(n_workers)
+    if group is not None:
+        if dist.get_world_size(group) != R:
+            raise ValueError(f"{R} workers need a group of {R} ranks, got "
+                             f"{dist.get_world_size(group)}")
     K = n_parity if n_parity is not None else max(1, R // 4)
     code = gradient_coding.make_gradient_code(R, K, seed=seed)
     # worker w's parity: the first k with k % R == w, its coded row and the
@@ -171,35 +220,40 @@ def make_coded_train_step(
                     zip(code.idx[row][code.mask[row]], code.coef[row][code.mask[row]])}
             parity[w] = (row, [(int(s), cmap[int(s)]) for s in nbrs])
 
+    def worker_terms(params, b, wts, w):
+        """Worker w's terms and their decode weights: its own (gradient,
+        loss), then, if it holds one, its parity's (gradient, 0)."""
+        l_own, g_own = value_and_grad(model.loss_fn, params, {k: v[w] for k, v in b.items()})
+        terms, weights = [(g_own, l_own)], [float(wts[w])]
+        if parity[w] is not None:
+            row, nbrs = parity[w]
+
+            def parity_loss(p, _):
+                return sum(c * model.loss_fn(p, {k: v[s] for k, v in b.items()})
+                           for s, c in nbrs)
+
+            _, g_par = value_and_grad(parity_loss, params, None)
+            terms.append((g_par, torch.zeros_like(l_own)))
+            weights.append(float(wts[row]))
+        return terms, weights
+
     def coded_grads(params, batch_all, weights):
         b = _as_tensors(batch_all, _on(params, dev))
         wts = np.asarray(torch.as_tensor(weights).cpu(), dtype=np.float32)
+        if group is not None:
+            terms, w = worker_terms(params, b, wts, dist.get_rank(group))
+            return collectives.coded_psum(terms, w, group)
         gsum, loss = None, torch.zeros((), dtype=torch.float32, device=_device_of(params))
         for w in range(R):
-            own = {k: v[w] for k, v in b.items()}
-            l_own, g_own = value_and_grad(model.loss_fn, params, own)
-            w_own, w_par = float(wts[w]), 0.0
-            if parity[w] is not None:
-                row, nbrs = parity[w]
-                w_par = float(wts[row])
-
-                def parity_loss(p, _):
-                    return sum(c * model.loss_fn(p, {k: v[s] for k, v in b.items()})
-                               for s, c in nbrs)
-
-                _, g_par = value_and_grad(parity_loss, params, None)
-                combined = tree_map(
-                    lambda a, p: w_own * a.float() + w_par * p.float(), g_own, g_par)
-                del g_par
-            else:
-                combined = tree_map(lambda a: w_own * a.float(), g_own)
-            del g_own
+            terms, tw = worker_terms(params, b, wts, w)
+            combined, l_w = collectives.weighted_sum(terms, tw)
+            del terms
             if gsum is None:
                 gsum = combined
             else:
                 tree_map(lambda a, g: a.add_(g), gsum, combined)
             del combined
-            loss = loss + l_own * w_own
+            loss = loss + l_w
         return gsum, loss
 
     def train_step(params, opt_state, batch_all, weights):

@@ -13,6 +13,7 @@ softcap's derivative through tanh); the log-sum-exp and the forward of the
 function rtol/atol 1e-6; gradcheck's own float64 defaults.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ Loads are compared bit for bit: the port sums in XLA's CPU order
 as the reference does.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -2,6 +2,7 @@
 theory: the same numpy inputs through ``repro.core.ccp`` and
 ``repro_torch.core.ccp`` agree within rtol 1e-6, ``inf``/``nan`` included."""
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import jax.numpy as jnp
 import numpy as np
 import pytest

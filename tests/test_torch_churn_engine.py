@@ -11,6 +11,7 @@ contracts into a fused multiply-add (``adaptive_rate``'s loss EWMA and its
 scaled pacing step, ``torch.addcmul`` in the port).
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import dataclasses
 import json
 import pathlib

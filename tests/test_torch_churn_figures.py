@@ -7,6 +7,7 @@ drop-and-count rule for uncertified reps.  The figures' numbers at full
 size are checked on the card by ``chip_smoke.py``.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import json
 import pathlib
 

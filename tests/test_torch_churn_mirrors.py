@@ -5,6 +5,7 @@ through the port's ``Engine`` on the CPU.  Hand-built dynamics carry a
 leading rep axis of 1.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ returns) and the port's simulate on the tables and dynamics the
 reference drew at that M give the same T, valid and r_n bit for bit.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import pytest
 import numpy as np
 

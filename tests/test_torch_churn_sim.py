@@ -5,6 +5,7 @@ the dynamics samplers against the reference's in distribution,
 transport knobs and ``tfrc_ccp``, taken since the transport slice.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import dataclasses
 
 import jax

@@ -3,6 +3,7 @@
 same numpy inputs, with no loss and with each single shard lost, on a plan
 whose losses peel and on one whose losses take the dense solve."""
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -10,6 +10,7 @@ no-straggler gradient sum equals the uncoded one bit for bit (weights 1 and
 0, summed in worker order), a one-straggler sum within 1e-5 of its max |.|
 (float32 decode weights)."""
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import numpy as np
 import pytest
 import torch

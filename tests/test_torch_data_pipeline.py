@@ -3,6 +3,7 @@ batches are the reference's (``repro.data``) bit for bit, the reference's
 own tests (``tests/test_data_pipeline.py``) hold on the port, and the
 prefetcher keeps order, stops and restarts, with and without a device."""
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import numpy as np
 import pytest
 import torch

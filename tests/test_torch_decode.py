@@ -9,6 +9,7 @@ The decoder is integer and boolean arithmetic, so every comparison is exact
 the same table and compared at rtol 1e-6.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import jax.numpy as jnp
 import numpy as np
 import pytest

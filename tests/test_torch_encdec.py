@@ -9,6 +9,7 @@ K/V, ``encode``, ``compute_cross_kv``, ``decode`` with and without
 decode through the KV cache.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import dataclasses
 
 import jax

@@ -8,6 +8,7 @@ traces are compared on JAX-drawn tables (``interop.tables_from_numpy``) and
 the samplers by moments only.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import json
 import pathlib
 
@@ -244,15 +245,30 @@ def test_engine_doubles_the_horizon_until_certified(monkeypatch):
     assert bool(one["valid"])
 
 
-def test_engine_refusals():
+def _fewer_cards_than_asked(monkeypatch):
+    """One card present (faked), two distinct ones asked for."""
+    from repro_torch.launch import mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert mesh.make_host_mesh(model=1).shape == {"data": 1, "model": 1}
+    with pytest.raises(ValueError, match="needs 2 distinct devices"):
+        mesh.make_host_mesh(model=2)
+
+
+def test_engine_refusals(monkeypatch):
     eng = eng_pt.Engine(device="cpu")
     cfg = sim_pt.ScenarioConfig(N=4)
     with pytest.raises(ValueError, match="known policies"):
         eng.run(cfg, "nope", 2, 100)
     with pytest.raises(ValueError, match="R must be"):
         eng.run(cfg, "ccp", 2, 0)
-    with pytest.raises(NotImplementedError, match="second card"):
-        eng_pt.Engine(device="cpu", shard=True)
+    # shard=True runs (since slice C5a): the reps split over the devices
+    # given, bitwise the unsharded run; a mesh of more distinct cards than
+    # the host has raises.
+    sharded = eng_pt.Engine(device="cpu", shard=True, devices=["cpu"] * 3).run(cfg, "ccp", 2, 100)
+    assert torch.equal(sharded.T, eng.run(cfg, "ccp", 2, 100).T)
+    _fewer_cards_than_asked(monkeypatch)
     # Since the transport slice tfrc_ccp and the transport knobs are taken,
     # and every reference policy is ported.
     transport = sim_pt.ScenarioConfig(N=4, churn=sim_pt.ChurnConfig(rtt_dist="fixed",

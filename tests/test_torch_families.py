@@ -20,6 +20,7 @@ and dtype, constants equal, normal leaves' moments within five standard
 errors).
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import dataclasses
 
 import jax

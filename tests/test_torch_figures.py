@@ -7,6 +7,7 @@ no uncertified rep, and the artifact's meta.  The figures' own numbers are
 checked on the card at full size by ``chip_smoke.py``.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import json
 import os
 import pathlib
@@ -27,7 +28,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
 def test_figures_smoke_lane(tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = _torch_env.env(PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.figures.run", "--smoke", "--device", "cpu",
          "--out", str(tmp_path)],

@@ -6,11 +6,12 @@ the queue laws of ``serve_round`` (work conservation, single-job
 reduction; bit for bit against the reference on random rounds), admission
 and releases, validation, the contention observables, the fleet metrics
 and ``FleetRunResult.summary()``.  Mirrors ``tests/test_fleet.py`` and
-``tests/test_transport.py``'s fleet case; the shard cases wait for a
-second card.  The traces on the reference's tables are in
+``tests/test_transport.py``'s fleet case; the shard cases at the
+reference's configs are in ``test_torch_sharded.py``.  The traces on the reference's tables are in
 ``test_torch_fleet_engine.py``.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import dataclasses
 
 import jax
@@ -252,7 +253,7 @@ def test_fleet_config_validation_matches_reference(kw, match):
     assert set(fleet.PLACEMENTS) >= set(fleet_jax.PLACEMENTS)
 
 
-def test_run_fleet_validation():
+def test_run_fleet_validation(monkeypatch):
     cfg = sim_pt.ScenarioConfig(N=4, scenario=1)
     with pytest.raises(TypeError, match="FleetConfig"):
         ENG.run_fleet(cfg, "ccp", 2, 10, fleet={"n_tasks": 2})
@@ -270,8 +271,19 @@ def test_run_fleet_validation():
     with pytest.raises(ValueError, match="discipline"):
         z = torch.zeros((1, 1, 2))
         fleet.serve_round(z, z, z > 0, torch.zeros((1, 2)), z, "lifo")
-    with pytest.raises(NotImplementedError, match="second card"):
-        eng_pt.Engine(device="cpu", shard=True)
+    # shard=True runs (since slice C5a): the reps split over the devices
+    # given, every tenant of a rep on its device, bitwise the unsharded run;
+    # a data mesh of more distinct cards than the host has raises.
+    fc = fleet.FleetConfig(n_tasks=2)
+    sharded = eng_pt.Engine(device="cpu", shard=True, devices=["cpu"] * 2).run_fleet(
+        cfg, "ccp", 3, 10, fleet=fc)
+    assert torch.equal(sharded.T, ENG.run_fleet(cfg, "ccp", 3, 10, fleet=fc).T)
+    from repro_torch.launch import mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 2 distinct devices"):
+        mesh.make_host_mesh(data=2)
 
 
 # ---------------------------------------------------------------------------

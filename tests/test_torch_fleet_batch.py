@@ -11,6 +11,7 @@ from its own single-task loop; the port keeps the equivalence spine and
 follows ``policy_stream`` (the last test pins this).
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import dataclasses
 
 import numpy as np

@@ -11,6 +11,7 @@ and ``hcmm``, static, and for five policies under churn.  The whole fleet
 batch and the transport case are in ``test_torch_fleet_batch.py``.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import jax
 import numpy as np
 import pytest

@@ -2,6 +2,7 @@
 plans of ``repro_torch`` equal the JAX reference's exactly, and the torch
 encode/decode match the reference on the same numpy inputs."""
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ Tolerances: the tables are the same numpy code on the same LT code, so they
 must be equal (decode weights to the last bit); recovered sums atol 1e-5,
 the reference's."""
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -3,6 +3,7 @@ package (nor ``msgpack``, ``zstandard`` or ``ml_dtypes``, which the card's
 host need not have), and its entry points run on a CUDA card unless the
 caller asks for the CPU."""
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import os
 import pathlib
 import subprocess
@@ -16,10 +17,12 @@ from repro_torch import _device, interop, quickstart
 from repro_torch.configs import get_config
 from repro_torch.core import baselines, engine, simulator
 from repro_torch.figures import run as figures_run
+from repro_torch.launch import mesh
 from repro_torch.launch import serve as serve_launch
 from repro_torch.launch import train as train_launch
 from repro_torch.models import build_model
 from repro_torch.optim import adamw
+from repro_torch.parallel import sharding
 from repro_torch.runtime import train_loop
 from repro_torch.runtime.serve_loop import ServeEngine
 
@@ -41,11 +44,22 @@ for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 from repro_torch import quickstart
 res = quickstart.coded_offload(device="cpu")
 assert max(res["rel_err"]) <= 1e-4, res
+import torch
+from repro_torch.core import coded_matmul as cm
+from repro_torch.launch import mesh
+plan = cm.plan_coded_matmul(rows=64, n_shards=4, overhead=0.5, bm=8)
+a, x = torch.randn(64, 32), torch.randn(32, 16)
+out = cm.run(plan, a, x, mesh=mesh.make_host_mesh(model=4, devices=["cpu"] * 4))
+assert float((out - cm.run(plan, a, x)).abs().max()) < 1e-4
 res = quickstart.rateless_vs_ccp(device="cpu", R=100, reps=2)
 assert res["certified"], res
 res = quickstart.ccp_vs_baselines(device="cpu", R=300, reps=2)
 assert all(res["valid"].values()), res
 from repro_torch.core import engine, simulator
+one = engine.Engine(device="cpu").run(simulator.ScenarioConfig(N=6), "ccp", 3, 60)
+two = engine.Engine(device="cpu", shard=True, devices=["cpu"] * 2).run(
+    simulator.ScenarioConfig(N=6), "ccp", 3, 60)
+assert torch.equal(one.T, two.T), (one.T, two.T)
 churn = simulator.ScenarioConfig(N=8, churn=simulator.ChurnConfig(drop_prob=0.1, p_down=0.1))
 res = engine.Engine(device="cpu").run(churn, "adaptive_rate_fb", 2, 60)
 assert bool(res.valid.any()) and float(res.lost_frac.max()) > 0, res
@@ -110,7 +124,7 @@ print("OK")
 
 
 def test_port_imports_no_jax_and_runs_without_it():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = _torch_env.env(PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", _BLOCKED], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -127,7 +141,9 @@ def test_chip_smoke_and_port_sources_name_no_jax():
             "core/gradient_coding.py", "launch/train.py",
             "kernels/flash_attention/autograd.py", "models/rglru.py", "models/xlstm.py",
             "models/moe.py", "models/encdec.py", "checkpoint/checkpoint.py",
-            "checkpoint/_msgpack.py", "utils/roofline.py", "utils/trace.py"} <= names
+            "checkpoint/_msgpack.py", "utils/roofline.py", "utils/trace.py",
+            "launch/mesh.py", "parallel/__init__.py", "parallel/sharding.py",
+            "parallel/collectives.py"} <= names
     for f in files:
         for line in f.read_text().splitlines():
             words = line.split()
@@ -187,6 +203,14 @@ def test_default_device_is_cuda_and_entry_points_refuse_without_a_card():
         train_loop.make_train_step(model, adamw.AdamWConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_loop.make_coded_train_step(model, adamw.AdamWConfig(), 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.make_host_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sharding.data_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.Engine(shard=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.init_ranks(0, 1, store_path="unused")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_loop.make_eval_step(model)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -8,6 +8,7 @@ float32 1e-5, bfloat16 2e-2 (bf16 encodes round at different places in the
 two frameworks).
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np

@@ -14,6 +14,7 @@ summed in another order by another library) and the cached-attention
 equivalence take the float32 sweep tolerance.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np

@@ -13,6 +13,7 @@ model's arithmetic and the plain version's differ by TF32 splitting and the
 order of fp32 sums.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import jax
 import jax.numpy as jnp
 import numpy as np

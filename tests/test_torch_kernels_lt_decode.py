@@ -11,6 +11,7 @@ Tolerances are the reference suite's (tests/test_decode.py,
 1e-4; bfloat16 2e-2.  Non-finite values are compared NaN-equal.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np

@@ -12,6 +12,7 @@ that spans chunks, and ``fountain.decode``'s CPU route.  The CUDA kernel itself 
 tests/test_torch_cuda.py (card only).
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -11,6 +11,7 @@ times that (bf16 sums round at different places in the two frameworks).
 Non-finite values are compared NaN-equal and inf-exact.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np

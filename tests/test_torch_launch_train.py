@@ -1,8 +1,9 @@
 """The port's training launcher (``python -m repro_torch.launch.train``) on
 the CPU: smoke steps, the coded-DP path, the config overrides, a run
 saved mid-way and resumed, and the options that wait for other slices
-refused."""
+refused.  ``--mesh D,1`` across ranks is in ``test_torch_ranks.py``."""
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import numpy as np
 import pytest
 
@@ -30,7 +31,7 @@ def test_coded_dp_runs_the_mesh_data_axis_as_workers(capsys):
     res = train.run(SMOKE + ["--steps", "2", "--coded-dp", "--mesh", "4,1", "--devices", "4"])
     assert len(res["history"]) == 2 and np.isfinite(res["loss"])
     assert res["sched_e_beta"].shape == (4,)
-    assert "no counterpart" in capsys.readouterr().err
+    assert "the port ignores it" in capsys.readouterr().err
 
 
 def test_overrides_from_the_environment(monkeypatch):
@@ -39,8 +40,7 @@ def test_overrides_from_the_environment(monkeypatch):
     assert (res["cfg"].n_layers, res["cfg"].d_ff) == (1, 64)
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--mesh", "2,1"], "second card"), (["--mesh", "1,2", "--coded-dp"], "second card")])
+@pytest.mark.parametrize("extra,match", [(["--mesh", "1,2", "--coded-dp"], "C5b")])
 def test_what_waits_for_other_slices_is_refused(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         train.run(SMOKE + ["--steps", "1"] + extra)
@@ -64,3 +64,11 @@ def test_ckpt_then_resume_equals_the_uninterrupted_run(tmp_path, capsys):
     for key in ("loss", "grad_norm", "lr"):
         assert resumed["history"][0][key] == full["history"][4][key] == first["history"][4][key]
     assert np.all(resumed["history"][0]["grad_leaf_sq"] > 0)  # the first step run's
+
+
+def test_mesh_data_axis_without_ranks_names_torchrun():
+    """--mesh 2,1 trains across 2 ranks: without a process group (and
+    without --coded-dp, which runs the workers in turn) it says how to
+    start them."""
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+        train.run(SMOKE + ["--steps", "1", "--mesh", "2,1"])

@@ -18,6 +18,7 @@ sample statistics (the two generators draw different numbers from the same
 distributions).
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import dataclasses
 
 import jax

@@ -9,6 +9,7 @@ squares in its own order, so the last bit can differ; the clip scale then
 moves every scaled gradient by an ulp or so.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,7 @@ RG-LRU block one-shot, chunked and token by token; the scan alone at long
 T; mLSTM and sLSTM full and streaming, their returned states included.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ and ``StepCosts``' counts of a smoke forward's products, exact), plus the
 kernels' cost counts that the wrappers add under ``StepCosts`` and the
 bounds in chip_smoke.py use."""
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import pathlib
 import re
 

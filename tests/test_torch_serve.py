@@ -8,6 +8,7 @@ and its float32 estimates to 1e-6 relative (the same float32 arithmetic
 through the port's ``core.ccp``, tests/test_torch_ccp.py).
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import time
 
 import jax

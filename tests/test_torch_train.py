@@ -17,6 +17,7 @@ tests/test_torch_optim.py).  Remat recomputes the same CPU arithmetic:
 equal to the last bit.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ The trace parity on the reference's tables is in
 own transport tests fail in ``test_torch_transport_pinned.py``.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import dataclasses
 
 import jax

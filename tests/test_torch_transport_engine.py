@@ -15,6 +15,7 @@ the estimator's multiply-adds differently there (ROADMAP queue 3), and the
 port rounds as ``policy_stream`` does.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import dataclasses
 
 import jax.numpy as jnp

@@ -7,6 +7,7 @@ against the committed artifacts' layout, and the drop-and-count rule.  The
 figures at full size are checked on the card by ``chip_smoke.py``.
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import dataclasses
 import json
 import pathlib

@@ -19,6 +19,7 @@ transport runs to its ``policy_stream`` and ``_sim_one`` extraction
 (``test_torch_transport_engine.reference_run``).
 """
 
+import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import dataclasses
 import json
 import pathlib
