@@ -34,8 +34,12 @@ several devices and ranks: the coded matmul over a mesh of 8 shards on the
 card, one K1 launch a shard, with the collector's recoveries, the sharded
 Monte-Carlo engine and fleet bit for bit the unsharded runs, and phi4-mini
 (1 layer) trained data parallel and coded data parallel across 4
-``torch.distributed`` ranks spawned on the card), checks the
-results, and prints one line per phase.  The line before
+``torch.distributed`` ranks spawned on the card); the tensor-parallel LM
+across 4 ranks of the card: phi4-mini (2 layers) trained on a (data 2,
+model 2) mesh with K4 and its backward on each rank's heads and ZeRO-1
+AdamW, moonshot-v1-16b-a3b's forward (2 layers) through the
+expert-parallel MoE on (1, 4), and elastic shrink-and-restore from (2, 2)
+to (1, 2)), checks the results, and prints one line per phase.  The line before
 the last is a JSON object with every kernel's launches on the main path,
 error and times; the last line is ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; so does a machine without a CUDA card,
@@ -3294,10 +3298,10 @@ def _ranks_train_rank(rank: int, world: int, store: str, device: str) -> dict:
     # the host's clock between two synchronisations.
     ar_s, all_reduce_tree = [], collectives.all_reduce_tree
 
-    def timed_all_reduce(tree, group=None):
+    def timed_all_reduce(tree, group=None, **kw):
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        all_reduce_tree(tree, group)
+        all_reduce_tree(tree, group, **kw)
         torch.cuda.synchronize(dev)
         ar_s.append(time.perf_counter() - t0)
         return tree
@@ -3451,6 +3455,521 @@ def ranks_train(dev) -> dict:
                     f"{k4.BWD_LAUNCHES * calls}")
     return dict(fwd=sum(r[n]["fwd"] for r in ranks for n in ("dp", "coded")),
                 bwd=sum(r[n]["bwd"] for r in ranks for n in ("dp", "coded")))
+
+
+# [tp-train]: the tensor-parallel LM (slice C5b) on 4 ranks of the one card
+# (gloo), mesh (data 2, model 2): phi4-mini-3.8b at its published width,
+# n_layers cut from 32 to 2 (params, gradients and ZeRO-1 m and v about 4.9
+# GB a rank; four ranks share the card and gloo stages every collective
+# through the host); a global batch of 4 x 512 synthetic tokens, 2 AdamW
+# steps, remat on.  The first step's loss within 1e-5 relative of the
+# one-process step's on the card from the same weights, and each gradient
+# leaf within 1e-4 of its max |g| (the port's card-vs-CPU anchors); the
+# second step's loss within 1e-4 relative (AdamW carries the first step's
+# rounding).  K4's launches in each rank exact, on 12 q / 4 kv heads.
+TP_TRAIN = dict(world=4, mesh=(2, 2), n_layers=2, batch=4, seq=512, steps=2, seed=5, lr=1e-3,
+                loss_rtol=1e-5, loss2_rtol=1e-4, grad_tol=1e-4, timeout_s=600)
+# [moe-a2a]: moonshot-v1-16b-a3b at its published width, 2 of its 48 layers
+# (2.35 GB of fp32 a layer), mesh (1, 4): the forward and the loss with every
+# MoE block through moe_a2a.moe_block_a2a, each rank its 16 experts and 4/4
+# heads; against the one-process dense model on the same weights: one MoE
+# block's output within 2e-5 of max|ref| and aux within 1e-4
+# (tests/test_moe_a2a.py's bounds) with the dense block's capacity drops
+# (one data rank: the global capacity), the logits within 1e-4 of max|ref|.
+MOE_A2A = dict(arch="moonshot-v1-16b-a3b", world=4, mesh=(1, 4), n_layers=2, batch=2, seq=512,
+               seed=7, block_tol=2e-5, aux_tol=1e-4, logit_tol=1e-4, loss_rtol=1e-5,
+               timeout_s=600)
+# [elastic]: ElasticTrainer on 4 ranks of the card, phi4-mini smoke (a save
+# at full width writes ~63 s per 9.8 GB): (2, 2), 12 steps with a
+# checkpoint every 5, one rank fails, (1, 2) restored from step 10, 8 more
+# steps.  The losses those of the uninterrupted one-process run on the card
+# (steps 0-11, then 10-17: the first within 1e-5 relative, every later one
+# within 1e-4), the restored state the saved one bit for bit.
+ELASTIC = dict(arch="phi4-mini-3.8b", world=4, batch=8, seq=16, steps_a=12, steps_b=8,
+               every=5, lr=3e-3, warmup=5, total=200, first_rtol=1e-5, rtol=1e-4,
+               dir=ROOT / "build" / "elastic-ckpt", timeout_s=300)
+
+
+def _count_heads(k4):
+    """Wrap K4's forward and backward wrappers (in every module that holds
+    them) to record each launch's (Hq, Hkv); their counts stay theirs."""
+    from repro_torch.kernels import flash_attention as fa_pkg
+    from repro_torch.kernels.flash_attention import autograd as fa_auto
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    seen = set()
+    fwd, bwd = k4.flash_attention_cuda, k4.flash_attention_bwd_cuda
+
+    def fwd_spy(q, k, v, **kw):
+        seen.add((int(q.shape[1]), int(k.shape[1])))
+        return fwd(q, k, v, **kw)
+
+    def bwd_spy(q, k, v, *rest, **kw):
+        seen.add((int(q.shape[1]), int(k.shape[1])))
+        return bwd(q, k, v, *rest, **kw)
+
+    for mod in (fa_auto, fa_ops, fa_pkg):
+        if hasattr(mod, "flash_attention_cuda"):
+            mod.flash_attention_cuda = fwd_spy
+        if hasattr(mod, "flash_attention_bwd_cuda"):
+            mod.flash_attention_bwd_cuda = bwd_spy
+    return seen
+
+
+def _timed_collectives(dev):
+    """Wrap dist.all_reduce and dist.all_gather with host-clock timers (the
+    device synchronised before and after); returns the list of seconds."""
+    import torch
+    import torch.distributed as dist
+
+    spent = []
+    for name in ("all_reduce", "all_gather"):
+        plain = getattr(dist, name)
+
+        def timed(*a, _plain=plain, **kw):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = _plain(*a, **kw)
+            torch.cuda.synchronize(dev)
+            spent.append(time.perf_counter() - t0)
+            return out
+
+        setattr(dist, name, timed)
+    return spent
+
+
+def _placements_match(o_sh, state) -> tuple:
+    """(leaves whose m and v placements both equal opt_state_shardings',
+    leaves)."""
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.parallel import tensor as tp
+
+    same = tree_map(lambda m, v, s: list(m.placements) == list(v.placements) == list(s[1]),
+                    state.m, state.v, tp.shardings_like(o_sh, state.m))
+    return sum(tree_leaves(same)), len(tree_leaves(same))
+
+
+def _tp_train_rank(rank: int, world: int, store: str, device: str) -> dict:
+    """One rank of [tp-train]: the gradients at the init against the
+    one-process ones (rank 0), then the counted run of 2 steps."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import _device
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.launch import mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel import tensor as tp
+    from repro_torch.runtime.train_loop import accumulate_grads, make_train_step
+
+    c = TP_TRAIN
+    dev = torch.device(device)
+    _device.full_fp32_matmuls(dev)
+    mesh.init_ranks(rank, world, device=dev, store_path=store, timeout_s=c["timeout_s"])
+    dmesh = mesh.make_device_mesh(*c["mesh"])
+    heads = _count_heads(k4)
+    cfg = get_config(TRAIN["arch"], n_layers=c["n_layers"])
+    model = build_model(cfg, remat=True)
+    opt = adamw.AdamWConfig(lr=c["lr"], warmup_steps=0, schedule="constant", weight_decay=0.0)
+    data = SyntheticLM(cfg.vocab, c["seq"], c["batch"], n_micro=1, seed=c["seed"])
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in data.batch(s).items()}
+               for s in range(c["steps"])]
+    full, axes = model.init(c["seed"], device=dev, with_axes=True)
+    rules = sharding.make_rules(cfg, dmesh)
+    o_sh = sharding.opt_state_shardings(dmesh, axes, rules, full)
+    params = tp.place_tree(full, sharding.param_shardings(dmesh, axes, rules))
+    if rank != 0:
+        del full
+    torch.cuda.empty_cache()
+    step = make_train_step(model, opt, 1, pre_shaped=True, device=dev, mesh=dmesh)
+    out = dict(rank=rank, backend=dist.get_backend(), params=cfg.n_params(), layers=cfg.n_layers,
+               coord=tuple(dmesh.get_coordinate()), rules={k: v for k, v in rules.items() if v})
+
+    # 1. Outside the counted run: the gradients at the init, gathered whole,
+    # against the one-process ones on the whole batch (rank 0).
+    g, loss = step.grads(params, batches[0])
+    g = tp.gather_tree(g)
+    if rank == 0:
+        g1, l1 = accumulate_grads(model, full, batches[0])
+        out["loss_tp"], out["loss_one"] = float(loss), float(l1)
+        out["grad_err"] = max(float((a - b).abs().max()) / float(b.abs().max())
+                              for a, b in zip(tree_leaves(g), tree_leaves(g1)))
+        del g1
+    del g
+    torch.cuda.empty_cache()
+
+    # 2. The counted run: 2 steps, K4's and the collectives' counts reset
+    # just before.
+    state = adamw.init(params, o_sh)
+    spent = _timed_collectives(dev)
+    torch.cuda.synchronize(dev)
+    dist.barrier()
+    k4.flash_attention_cuda.launches = k4.flash_attention_bwd_cuda.launches = 0
+    tp.reset_counts()
+    heads.clear()
+    losses, secs, coll = [], [], []
+    for s in range(c["steps"]):
+        n0 = len(spent)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batches[s])
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize(dev)
+        secs.append(time.perf_counter() - t0)
+        coll.append(sum(spent[n0:]))
+    out.update(losses=losses, step_s=secs, coll_s=coll, counts=tp.counts(),
+               fwd=k4.flash_attention_cuda.launches, bwd=k4.flash_attention_bwd_cuda.launches,
+               heads=sorted(heads), placements=_placements_match(o_sh, state),
+               embed_m=str(list(state.m["embed"].placements)),
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del params, state
+    torch.cuda.empty_cache()
+    # 3. The one-process run on rank 0 from the same weights.
+    dist.barrier()
+    if rank == 0:
+        one = make_train_step(model, opt, 1, pre_shaped=True, device=dev)
+        st = adamw.init(full)
+        ref = []
+        for s in range(c["steps"]):
+            full, st, m = one(full, st, batches[s])
+            ref.append(float(m["loss"]))
+        out["losses_one"] = ref
+        del full, st
+    dist.barrier()
+    out["finite"] = bool(np.all(np.isfinite(losses)))
+    dist.destroy_process_group()
+    return out
+
+
+def tp_train(dev) -> dict:
+    """[tp-train] (see TP_TRAIN): returns K4's launches summed over the
+    ranks."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.launch import mesh
+
+    c = TP_TRAIN
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mesh.spawn_ranks(_tp_train_rank, c["world"], str(dev), timeout_s=c["timeout_s"])
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    cfg = get_config(TRAIN["arch"])
+    cfg_heads = (cfg.n_heads // c["mesh"][1], cfg.n_kv_heads // c["mesh"][1])
+    for r in ranks:
+        kinds = ";".join(f"{k}:{n}x{b / 1e6:.3f}MB" for k, (n, b) in r["counts"].items())
+        phase("tp-train", rank=r["rank"], coord=r["coord"], backend=r["backend"],
+              losses=",".join(f"{v:.6f}" for v in r["losses"]),
+              step_s=",".join(f"{v:.3f}" for v in r["step_s"]),
+              collective_s=",".join(f"{v:.3f}" for v in r["coll_s"]),
+              collective_share=f"{sum(r['coll_s']) / sum(r['step_s']):.3f}",
+              k4_fwd=r["fwd"], k4_bwd=r["bwd"], heads=r["heads"],
+              zero1_placements=f"{r['placements'][0]}/{r['placements'][1]}",
+              embed_m=repr(r["embed_m"]), peak_gb=f"{r['peak_gb']:.2f}", collectives=kinds)
+    loss_rel = abs(r0["loss_tp"] - r0["loss_one"]) / abs(r0["loss_one"])
+    rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], r0["losses_one"])]
+    phase("tp-train", arch=TRAIN["arch"], layers=r0["layers"], params=r0["params"],
+          mesh=f"{c['mesh'][0]}x{c['mesh'][1]}", rules=repr(r0["rules"]),
+          global_batch=f"{c['batch']}x{c['seq']}", loss_tp=f"{r0['loss_tp']:.7f}",
+          loss_one=f"{r0['loss_one']:.7f}", loss_rel_diff=f"{loss_rel:.3e}",
+          worst_leaf_rel_diff=f"{r0['grad_err']:.3e}",
+          losses_one=",".join(f"{v:.6f}" for v in r0["losses_one"]),
+          step_loss_rel_diff=",".join(f"{v:.3e}" for v in rel), wall_s=f"{wall:.3f}")
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError("ranks sharing one card must run gloo")
+    if not loss_rel <= c["loss_rtol"] or not rel[0] <= c["loss_rtol"]:
+        raise AssertionError(f"the TP loss differs by {loss_rel:.3e} from the one-process one")
+    if not all(v <= c["loss2_rtol"] for v in rel):
+        raise AssertionError(f"the TP losses differ from the one-process run's: {rel}")
+    if not r0["grad_err"] <= c["grad_tol"]:
+        raise AssertionError(f"a TP gradient misses the one-process one by {r0['grad_err']:.3e}")
+    calls = c["n_layers"] * c["steps"]
+    for r in ranks:
+        if not r["finite"] or r["losses"] != r0["losses"]:
+            raise AssertionError(f"rank {r['rank']}'s losses: {r['losses']}")
+        if (r["fwd"], r["bwd"]) != (2 * calls, k4.BWD_LAUNCHES * calls):
+            raise AssertionError(f"rank {r['rank']}: K4 launched {r['fwd']} forwards and "
+                                 f"{r['bwd']} backward kernels, expected {2 * calls} and "
+                                 f"{k4.BWD_LAUNCHES * calls}")
+        if r["heads"] != [cfg_heads]:
+            raise AssertionError(f"rank {r['rank']}: K4 ran on heads {r['heads']}")
+        if r["placements"][0] != r["placements"][1] or r["placements"][1] == 0:
+            raise AssertionError(f"rank {r['rank']}: m/v placements differ from "
+                                 "opt_state_shardings")
+        if "tp_gather" in r["counts"] or "gather_full" in r["counts"]:
+            raise AssertionError(f"rank {r['rank']}: a step gathered weights whole "
+                                 f"({r['counts']})")
+        ce_calls, ce_bytes = r["counts"]["ce_all_reduce"]
+        if ce_bytes > ce_calls * 4 * c["batch"] * c["seq"]:
+            raise AssertionError(f"rank {r['rank']}: the loss's collectives carried "
+                                 f"{ce_bytes} bytes: logits gathered?")
+    return dict(fwd=sum(r["fwd"] for r in ranks), bwd=sum(r["bwd"] for r in ranks))
+
+
+def _moe_a2a_rank(rank: int, world: int, store: str, device: str) -> dict:
+    """One rank of [moe-a2a]."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import _device
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.launch import mesh
+    from repro_torch.models import build_model, moe
+    from repro_torch.models.moe_a2a import moe_block_a2a
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel import tensor as tp
+
+    c = MOE_A2A
+    dev = torch.device(device)
+    _device.full_fp32_matmuls(dev)
+    mesh.init_ranks(rank, world, device=dev, store_path=store, timeout_s=c["timeout_s"])
+    dmesh = mesh.make_device_mesh(*c["mesh"])
+    heads = _count_heads(k4)
+    cfg = get_config(c["arch"], n_layers=c["n_layers"])
+    model = build_model(cfg)
+    full, axes = model.init(c["seed"], device=dev, with_axes=True)
+    rules = sharding.make_rules(cfg, dmesh)
+    params = tp.place_tree(full, sharding.param_shardings(dmesh, axes, rules))
+    if rank != 0:
+        del full
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(c["seed"])
+    tok = torch.randint(0, cfg.vocab, (c["batch"], c["seq"]), device=dev, generator=gen)
+    x = torch.randn(c["batch"], c["seq"], cfg.d_model, device=dev, generator=gen) * 0.5
+    out = dict(rank=rank, rules={k: v for k, v in rules.items() if v})
+
+    # 1. One MoE block on the same x: a2a (this rank's 16 experts) against
+    # the dense block (rank 0), and the capacity drops of each.
+    moe.set_moe_opts(count_drops=True)
+    moe_block_a2a.dropped = 0
+    with torch.no_grad():
+        y, aux = moe_block_a2a(params["blocks"][0]["mlp"], x, cfg, dmesh)
+    drops = torch.as_tensor(moe_block_a2a.dropped, device=dev).reshape(1).clone()
+    dist.all_reduce(drops)
+    out["a2a_dropped"] = int(drops)
+    if rank == 0:
+        moe.moe_block.dropped = 0
+        with torch.no_grad():
+            ref, aux_ref = moe.moe_block(full["blocks"][0]["mlp"], x, cfg)
+        out["dense_dropped"] = int(moe.moe_block.dropped)
+        out["block_err"] = float((y - ref).abs().max()) / float(ref.abs().max())
+        out["aux_err"] = abs(float(aux) - float(aux_ref))
+        del ref
+    moe.set_moe_opts()
+    del y
+
+    # 2. The counted run: the forward and the loss of the 2-layer model with
+    # every MoE block through moe_block_a2a.
+    moe.set_moe_opts(a2a_mesh=dmesh)
+    torch.cuda.synchronize(dev)
+    dist.barrier()
+    k4.flash_attention_cuda.launches = 0
+    tp.reset_counts()
+    heads.clear()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = model.forward(params, tok)
+        loss = model.loss_fn(params, {"tokens": tok, "labels": tok})
+    torch.cuda.synchronize(dev)
+    out.update(fwd_s=time.perf_counter() - t0, fwd=k4.flash_attention_cuda.launches,
+               heads=sorted(heads), counts=tp.counts(), loss=float(loss),
+               logits_sharded=tp.is_dtensor(logits))
+    moe.set_moe_opts()
+    logits = tp.full_tensor(logits)
+    if rank == 0:
+        with torch.no_grad():
+            ref = model.forward(full, tok)
+            loss_ref = model.loss_fn(full, {"tokens": tok, "labels": tok})
+        out["logit_err"] = float((logits - ref).abs().max()) / float(ref.abs().max())
+        out["loss_ref"] = float(loss_ref)
+        del ref
+    del logits, params
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def moe_a2a_phase(dev) -> int:
+    """[moe-a2a] (see MOE_A2A): returns K4's launches summed over the
+    ranks."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh
+
+    c = MOE_A2A
+    cfg = get_config(c["arch"])
+    heads = (cfg.n_heads // c["mesh"][1], cfg.n_kv_heads // c["mesh"][1])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mesh.spawn_ranks(_moe_a2a_rank, c["world"], str(dev), timeout_s=c["timeout_s"])
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks:
+        kinds = ";".join(f"{k}:{n}x{b / 1e6:.3f}MB" for k, (n, b) in r["counts"].items())
+        phase("moe-a2a", rank=r["rank"], k4_fwd=r["fwd"], heads=r["heads"],
+              forward_s=f"{r['fwd_s']:.3f}", loss=f"{r['loss']:.7f}",
+              peak_gb=f"{r['peak_gb']:.2f}", collectives=kinds)
+    loss_rel = abs(r0["loss"] - r0["loss_ref"]) / abs(r0["loss_ref"])
+    phase("moe-a2a", arch=c["arch"], layers=c["n_layers"], mesh=f"{c['mesh'][0]}x{c['mesh'][1]}",
+          rules=repr(r0["rules"]), tokens=f"{c['batch']}x{c['seq']}",
+          block_rel_err=f"{r0['block_err']:.3e}", aux_err=f"{r0['aux_err']:.3e}",
+          dropped_a2a=r0["a2a_dropped"], dropped_dense=r0["dense_dropped"],
+          logit_rel_err=f"{r0['logit_err']:.3e}", loss_ref=f"{r0['loss_ref']:.7f}",
+          loss_rel_diff=f"{loss_rel:.3e}", wall_s=f"{wall:.3f}")
+    if not r0["block_err"] <= c["block_tol"] or not r0["aux_err"] <= c["aux_tol"]:
+        raise AssertionError("moe_block_a2a misses the dense block")
+    if r0["a2a_dropped"] != r0["dense_dropped"]:
+        raise AssertionError("moe_block_a2a dropped other assignments than the dense block")
+    if not r0["logit_err"] <= c["logit_tol"] or not loss_rel <= c["loss_rtol"]:
+        raise AssertionError("the a2a model's logits or loss miss the dense model's")
+    for r in ranks:
+        if r["fwd"] != 2 * c["n_layers"] or r["heads"] != [heads]:
+            raise AssertionError(f"rank {r['rank']}: K4 launched {r['fwd']} times on heads "
+                                 f"{r['heads']}, expected {2 * c['n_layers']} on {heads}")
+        n, b = r["counts"].get("tp_gather", (1, 0))
+        if not r["logits_sharded"] or b / n > 64e6:
+            raise AssertionError(f"rank {r['rank']}: gathered the logits or a large weight "
+                                 f"({r['counts']})")
+        if r["loss"] != r0["loss"]:
+            raise AssertionError(f"rank {r['rank']}'s loss differs from rank 0's")
+    return sum(r["fwd"] for r in ranks)
+
+
+def _elastic_rank(rank: int, world: int, store: str, device: str, batches) -> dict:
+    """One rank of [elastic]."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import _device
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.launch import mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel import tensor as tp
+    from repro_torch.runtime.elastic import ElasticConfig, ElasticTrainer
+    from repro_torch.runtime.train_loop import make_train_step
+
+    c = ELASTIC
+    dev = torch.device(device)
+    _device.full_fp32_matmuls(dev)
+    mesh.init_ranks(rank, world, device=dev, store_path=store, timeout_s=c["timeout_s"])
+    cfg = get_config(c["arch"], smoke=True)
+    model = build_model(cfg, remat=True)
+    opt = adamw.AdamWConfig(lr=c["lr"], warmup_steps=c["warmup"], total_steps=c["total"],
+                            weight_decay=0.0)
+
+    def build(dmesh):
+        params, axes = model.init(0, device=dev, with_axes=True)
+        rules = sharding.make_rules(cfg, dmesh)
+        o_sh = sharding.opt_state_shardings(dmesh, axes, rules, params)
+        p = tp.place_tree(params, sharding.param_shardings(dmesh, axes, rules))
+        step = make_train_step(model, opt, 1, pre_shaped=True, device=dev, mesh=dmesh)
+
+        def step_fn(state, batch):
+            p, o, m = step(state[0], state[1], batch)
+            return (p, o), m
+
+        return (p, adamw.init(p, o_sh)), step_fn, None
+
+    tr = ElasticTrainer(ElasticConfig(ckpt_dir=str(c["dir"]), ckpt_every=c["every"]), build)
+    saved = {}
+
+    def batch_fn(step, dmesh):
+        if step == 10 and not saved:  # the state the step-10 checkpoint holds
+            saved["state"] = tp.gather_tree(tr.state)
+        return {k: torch.as_tensor(v, device=dev) for k, v in batches[step].items()}
+
+    k4.flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    tr.rebuild(model_axis=2)
+    mesh_a = tuple(tr.mesh.mesh.shape)
+    losses_a = tr.run(c["steps_a"], batch_fn)
+    before = tr.step
+    tr.fail_device(world - 1, model_axis=2)
+    restored = tp.gather_tree(tr.state) if tr.in_mesh() else None
+    after = tr.step
+    losses_b = tr.run(c["steps_b"], batch_fn)
+    torch.cuda.synchronize(dev)
+    out = dict(rank=rank, mesh_a=mesh_a, mesh_b=tuple(tr.mesh.mesh.shape), in_mesh=tr.in_mesh(),
+               losses_a=losses_a, losses_b=losses_b, before=before, after=after,
+               wall_s=time.perf_counter() - t0, fwd=k4.flash_attention_cuda.launches)
+    if restored is not None and "state" in saved:
+        out["bitwise"] = all(tree_leaves(tree_map(
+            lambda a, b: bool(torch.equal(a, b)) if isinstance(a, torch.Tensor) else a == b,
+            saved["state"], restored)))
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def elastic_phase(dev) -> int:
+    """[elastic] (see ELASTIC): returns K4's launches summed over the ranks."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import make_train_step
+
+    c = ELASTIC
+    shutil.rmtree(c["dir"], ignore_errors=True)
+    cfg = get_config(c["arch"], smoke=True)
+    data = SyntheticLM(cfg.vocab, c["seq"], c["batch"], n_micro=1, seed=0)
+    n = c["steps_a"] + c["steps_b"] - 2
+    batches = [data.batch(s) for s in range(n)]
+    # the uninterrupted one-process run on the card
+    model = build_model(cfg, remat=True)
+    params = model.init(0, device=dev)
+    opt = adamw.AdamWConfig(lr=c["lr"], warmup_steps=c["warmup"], total_steps=c["total"],
+                            weight_decay=0.0)
+    step, state, want = make_train_step(model, opt, 1, pre_shaped=True, device=dev), \
+        adamw.init(params), []
+    for b in batches:
+        params, state, m = step(params, state, {k: torch.as_tensor(v, device=dev)
+                                                for k, v in b.items()})
+        want.append(float(m["loss"]))
+    del params, state
+    t0 = time.perf_counter()
+    ranks = mesh.spawn_ranks(_elastic_rank, c["world"], str(dev), batches,
+                             timeout_s=c["timeout_s"])
+    wall = time.perf_counter() - t0
+    shutil.rmtree(c["dir"], ignore_errors=True)
+    r0 = ranks[0]
+    rel_a = [abs(a - b) / abs(b) for a, b in zip(r0["losses_a"], want)]
+    rel_b = [abs(a - b) / abs(b) for a, b in zip(r0["losses_b"], want[r0["after"]:])]
+    phase("elastic", arch=c["arch"] + " smoke", mesh_a=r0["mesh_a"], mesh_b=r0["mesh_b"],
+          steps_before=r0["before"], restored_step=r0["after"], bitwise=r0.get("bitwise"),
+          worst_rel_a=f"{max(rel_a):.3e}", worst_rel_b=f"{max(rel_b):.3e}",
+          first_rel=f"{rel_a[0]:.3e}", in_mesh=",".join(str(int(r["in_mesh"])) for r in ranks),
+          k4_fwd=",".join(str(r["fwd"]) for r in ranks), rank_s=f"{r0['wall_s']:.3f}",
+          wall_s=f"{wall:.3f}")
+    if r0["mesh_a"] != (2, 2) or r0["mesh_b"] != (1, 2) or r0["after"] != 10:
+        raise AssertionError("the elastic run did not shrink to (1, 2) from step 10")
+    if r0.get("bitwise") is not True:
+        raise AssertionError("the restored state differs from the saved one")
+    if not rel_a[0] <= c["first_rtol"] or not max(rel_a + rel_b) <= c["rtol"]:
+        raise AssertionError(f"the elastic losses miss the uninterrupted run's: {rel_a} {rel_b}")
+    for r in ranks:
+        if r["in_mesh"] != (r["rank"] < 2) or len(r["losses_a"]) != c["steps_a"]:
+            raise AssertionError(f"rank {r['rank']} in the wrong mesh")
+        if r["in_mesh"] and r["losses_b"] != r0["losses_b"] or not np.all(
+                np.isfinite(r["losses_a"])):
+            raise AssertionError(f"rank {r['rank']}'s losses differ from rank 0's")
+    return sum(r["fwd"] for r in ranks)
+
 
 
 def main() -> int:
@@ -3631,7 +4150,17 @@ def main() -> int:
     fa["launches_by_path"]["ranks-train"] = rank_launches["fwd"]
     fa_bwd["launches_by_path"]["ranks-train"] = rank_launches["bwd"]
 
-    # 15. Every kernel of the paths.
+    # 15. The tensor-parallel LM across ranks (slice C5b), 4 ranks on the
+    # card each time (K4's counts reset in each rank just before its counted
+    # run): phi4-mini trained on a (2, 2) mesh, moonshot's forward through
+    # the all-to-all MoE on (1, 4), and the elastic shrink-and-restore.
+    tp_launches = tp_train(dev)
+    fa["launches_by_path"]["tp-train"] = tp_launches["fwd"]
+    fa_bwd["launches_by_path"]["tp-train"] = tp_launches["bwd"]
+    fa["launches_by_path"]["moe-a2a"] = moe_a2a_phase(dev)
+    fa["launches_by_path"]["elastic"] = elastic_phase(dev)
+
+    # 16. Every kernel of the paths.
     print(json.dumps({"kernels": [
         dict(name="coded_matmul", route="cuda",
              source="src/repro_torch/csrc/coded_matmul.cu",

@@ -29,6 +29,15 @@ view, numpy has no such type), numpy arrays, and Python ints (AdamW's
 step, saved as a 0-d int32 as the reference's step is).  Restore follows a
 target tree of tensors (real, or on the ``meta`` device in place of
 ``jax.ShapeDtypeStruct``), numpy arrays or ints: see :func:`restore`.
+
+A tree of DTensors (the tensor-parallel state over a ``(data, model)``
+mesh) is saved as whole tensors: every rank of the mesh gathers each leaf
+(``parallel.tensor.full_tensor``) and the mesh's first rank writes, so the
+files and the index are those of a one-process save of the same values.
+:func:`restore` onto DTensor targets, or onto ``(DeviceMesh, placements)``
+pairs (the counterpart of the reference's ``shardings``), reads each leaf
+whole on every rank and keeps the rank's chunk: the checkpoint of one
+mesh restores onto another, or onto one process.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel import tensor as tp
 from . import _msgpack
 
 try:
@@ -125,12 +135,19 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
+def _is_mesh_pair(x) -> bool:
+    return (isinstance(x, tuple) and len(x) == 2
+            and getattr(x[0], "mesh_dim_names", None) is not None)
+
+
 def _walk(tree: PyTree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[str, Any]]:
     """(key, leaf) in the order and with the names of JAX's
     ``tree_flatten_with_path``; None is an empty subtree."""
     if tree is None:
         return
-    if isinstance(tree, dict):
+    if _is_mesh_pair(tree):  # restore's (DeviceMesh, placements): one leaf
+        yield "/".join(path), tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
             yield from _walk(tree[k], path + (str(k),))
     elif _is_namedtuple(tree):
@@ -183,7 +200,10 @@ def _host_bytes(leaf) -> Tuple[memoryview, List[int], str]:
 
 def _snapshot(leaf):
     """A host copy of a leaf that nothing else holds (the next training
-    step updates the parameters and moments in place)."""
+    step updates the parameters and moments in place); a DTensor gathered
+    whole first (every rank of its mesh must call)."""
+    if tp.is_dtensor(leaf):
+        return tp.full_tensor(leaf).to("cpu", copy=True)
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True)
     if isinstance(leaf, np.ndarray):
@@ -202,7 +222,17 @@ def save(
     keep_last: int = 3,
     threads: int = DEFAULT_THREADS,
 ) -> pathlib.Path:
-    """Synchronous chunked save; see AsyncCheckpointer for the async path."""
+    """Synchronous chunked save; see AsyncCheckpointer for the async path.
+    A tree holding DTensors: every rank of their mesh calls, each leaf is
+    gathered whole, and only the mesh's first rank writes (the others
+    return None)."""
+    writer = tp.writer_rank(tree)
+    if writer is not None:
+        import torch.distributed as dist
+
+        tree = _rebuild(tree, {k: tp.full_tensor(v) for k, v in _walk(tree)})
+        if dist.get_rank() != writer:
+            return None
     root = pathlib.Path(root)
     final = root / f"step_{step:09d}"
     tmp = root / f".tmp_step_{step:09d}"
@@ -290,17 +320,42 @@ def latest_step(root: str | pathlib.Path) -> Optional[int]:
 # --------------------------------------------------------------- restore
 
 
-def _placement(dev) -> Optional[torch.device]:
-    if dev is None or isinstance(dev, torch.device):
+def _placement(dev):
+    """A torch.device, or a ``(DeviceMesh, placements)`` pair, or None."""
+    if dev is None or isinstance(dev, torch.device) or _is_mesh_pair(dev):
         return dev
     if isinstance(dev, str):
         return torch.device(dev)
-    if type(dev).__module__.startswith("torch.distributed"):
-        raise NotImplementedError(
-            f"restore onto a {type(dev).__name__} (sharded placement across ranks) waits for "
-            "the multi-card slice of the port (C5b); pass a device or a tree of devices")
-    raise TypeError(f"restore places leaves on a torch.device or a device name; got "
-                    f"{type(dev).__name__}")
+    raise TypeError(f"restore places leaves on a torch.device, a device name or a "
+                    f"(DeviceMesh, placements) pair; got {type(dev).__name__}")
+
+
+def _device_leaves(device: Any, flat_target: Dict[str, Any]) -> Dict[str, Any]:
+    """``restore``'s ``device`` argument as one placement a target leaf."""
+    if device is None or isinstance(device, (str, torch.device)) or _is_mesh_pair(device):
+        one = _placement(device)
+        return {k: one for k in flat_target}
+    return {k: _placement(v) for k, v in _walk(device)}
+
+
+def _to_mesh(host: torch.Tensor, tgt, place) -> Any:
+    """A DTensor of ``host``'s values: into ``tgt``'s local tensor when
+    ``tgt`` is a DTensor of that layout (in place), else laid out by
+    ``place`` (a ``(DeviceMesh, placements)`` pair) or as ``tgt``."""
+    mesh, placements = place if place is not None else (tgt.device_mesh, tgt.placements)
+    chunk = tp.local_chunk(host, mesh, placements)
+    if (tp.is_dtensor(tgt) and tgt.device_mesh == mesh and list(tgt.placements) == list(
+            placements) and tgt.dtype == host.dtype):
+        with torch.no_grad():
+            tgt.to_local().copy_(chunk)
+        return tgt
+    dev = tgt.device if tp.is_dtensor(tgt) or (
+        isinstance(tgt, torch.Tensor) and tgt.device.type != "meta") else torch.device(
+        mesh.device_type)
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(chunk.to(dev), mesh, list(placements), run_check=False,
+                              shape=host.shape, stride=host.stride())
 
 
 def restore(
@@ -315,11 +370,13 @@ def restore(
     ``meta`` device) gives a tensor of the checkpoint's dtype; a numpy
     array (or any object with a ``shape``) a numpy array; an int an int.
     ``device``, one device or a tree matching ``target``, places tensors
-    (the single-card form of the reference's ``shardings``); by default a
-    tensor goes where its target tensor lies (the CPU for ``meta``) and a
-    numpy leaf stays on the host.  Where the target holds a real tensor of
-    the same shape, dtype and device, the values are copied into it and it
-    is returned (a resume at full width then holds the state once on the
+    (the reference's ``shardings``): a device, or a ``(DeviceMesh,
+    placements)`` pair, which gives a DTensor of this rank's chunk; by
+    default a tensor goes where its target tensor lies (the CPU for
+    ``meta``; a DTensor target keeps its layout) and a numpy leaf stays on
+    the host.  Where the target holds a real tensor (or DTensor) of the
+    same shape, dtype, device and layout, the values are copied into it and
+    it is returned (a resume at full width then holds the state once on the
     card).  Leaves decode on ``DEFAULT_THREADS`` threads."""
     root = pathlib.Path(root)
     if step is None:
@@ -347,12 +404,7 @@ def restore(
         )
 
     flat_target = _flatten(target)
-    if device is None or isinstance(device, (str, torch.device)) or not isinstance(
-            device, (dict, list, tuple)):
-        one = _placement(device)
-        flat_dev = {k: one for k in flat_target}
-    else:
-        flat_dev = {k: _placement(v) for k, v in _flatten(device).items()}
+    flat_dev = _device_leaves(device, flat_target)
     for key, tgt in flat_target.items():
         entry = index.get(key)
         if entry is None:
@@ -390,6 +442,8 @@ def restore(
         dev = flat_dev.get(key)
         if isinstance(tgt, int):
             return key, int(host)
+        if tp.is_dtensor(tgt) or _is_mesh_pair(dev):
+            return key, _to_mesh(host, tgt, dev if _is_mesh_pair(dev) else None)
         if isinstance(tgt, torch.Tensor):
             place = dev or (tgt.device if tgt.device.type != "meta" else torch.device("cpu"))
             if (tgt.device.type != "meta" and tgt.device == place and tgt.dtype == dtype
@@ -428,11 +482,20 @@ class AsyncCheckpointer:
         self.write_s: Optional[float] = None
 
     def save_async(self, step: int, tree: PyTree, metadata=None) -> None:
+        """A tree of DTensors: every rank of their mesh calls (each leaf is
+        gathered whole); the mesh's first rank writes, the others only
+        gather."""
         self.wait()
         t0 = time.perf_counter()
+        writer = tp.writer_rank(tree)
         host_tree = _rebuild(tree, {k: _snapshot(v) for k, v in _walk(tree)})
         self.snapshot_s = time.perf_counter() - t0
         self.write_s = None
+        if writer is not None:
+            import torch.distributed as dist
+
+            if dist.get_rank() != writer:
+                return
 
         def write():
             t1 = time.perf_counter()

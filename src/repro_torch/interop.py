@@ -19,8 +19,8 @@ from .core import engine, fountain
 from .core.coded_matmul import CodedMatmulPlan
 
 __all__ = ["adamw_state_from_numpy", "dynamics_from_numpy", "encdec_params_from_numpy",
-           "fleet_tables_from_numpy", "lm_params_from_numpy", "lt_code_from_arrays",
-           "plan_from_arrays", "tables_from_numpy"]
+           "fleet_tables_from_numpy", "lm_axes_from_reference", "lm_params_from_numpy",
+           "lt_code_from_arrays", "plan_from_arrays", "tables_from_numpy"]
 
 
 def lt_code_from_arrays(idx, mask, coef, R: int, K: int) -> fountain.LTCode:
@@ -131,6 +131,35 @@ def lm_params_from_numpy(cfg, tree, device=None) -> dict:
     params["blocks"] = [_to_torch(stacked[f"b{i % period}"], dev, i // period)
                         for i in range(cfg.n_layers)]
     return params
+
+
+def lm_axes_from_reference(cfg, axes) -> dict:
+    """The port's logical axes tree from the reference's (``init(key)``'s
+    second value; leaves plain tuples of names and None): its stacked
+    layers, ``blocks/b{j}`` (``encoder``/``decoder`` for an encoder-decoder
+    ``cfg``), become one dict a layer, each leaf without its leading
+    ``"layers"`` entry, as :func:`lm_params_from_numpy` lays the values
+    out."""
+    def unstack(node):
+        if isinstance(node, dict):
+            return {k: unstack(v) for k, v in node.items()}
+        node = tuple(node)
+        if not node or node[0] != "layers":
+            raise ValueError(f"a stacked layer leaf's axes start with 'layers': {node}")
+        return node[1:]
+
+    def plain(node):
+        return {k: plain(v) for k, v in node.items()} if isinstance(node, dict) else tuple(node)
+
+    if cfg.enc_dec:
+        out = {k: plain(v) for k, v in axes.items() if k not in ("encoder", "decoder")}
+        out["encoder"] = [unstack(axes["encoder"]) for _ in range(cfg.n_enc_layers)]
+        out["decoder"] = [unstack(axes["decoder"]) for _ in range(cfg.n_layers)]
+        return out
+    out = {k: plain(v) for k, v in axes.items() if k != "blocks"}
+    out["blocks"] = [unstack(axes["blocks"][f"b{i % cfg.pattern_period}"])
+                     for i in range(cfg.n_layers)]
+    return out
 
 
 def encdec_params_from_numpy(cfg, tree, device=None) -> dict:

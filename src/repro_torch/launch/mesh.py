@@ -12,8 +12,10 @@ that by whether a path has a collective:
 - Paths with a collective run as ``torch.distributed`` ranks, one process
   each, started by ``torchrun`` or :func:`spawn_ranks`: ``coded_psum``,
   the data-parallel gradient mean and ``sharded_cross_entropy``
-  (:mod:`repro_torch.parallel.collectives`).  :func:`init_ranks` starts
-  their process group; :func:`backend_for` picks its backend.
+  (:mod:`repro_torch.parallel.collectives`), and the tensor-parallel LM
+  over a ``(data, model)`` ``DeviceMesh`` of ranks (:func:`make_device_mesh`,
+  :mod:`repro_torch.parallel.tensor`).  :func:`init_ranks` starts their
+  process group; :func:`backend_for` picks its backend.
 
 Run the ranks on the CPU (gloo) or on cards::
 
@@ -37,7 +39,7 @@ import torch.distributed as dist
 
 from .. import _device
 
-__all__ = ["HostMesh", "backend_for", "init_ranks", "make_host_mesh",
+__all__ = ["HostMesh", "backend_for", "init_ranks", "make_device_mesh", "make_host_mesh",
            "make_production_mesh", "rank_device", "spawn_ranks"]
 
 
@@ -93,6 +95,30 @@ def make_host_mesh(data: int = 1, model: int = 1, devices: Optional[Sequence] = 
     return HostMesh(grid.reshape(int(data), int(model)), ("data", "model"))
 
 
+def make_device_mesh(data: int, model: int = 1, ranks: Optional[Sequence[int]] = None):
+    """A ``(data, model)`` ``torch.distributed`` ``DeviceMesh`` over ranks
+    of the started process group (:func:`init_ranks`), with the reference's
+    axis names: ``ranks`` (default ``0 .. data * model - 1``; the first
+    ``data * model`` of them are taken) placed row-major, rank
+    ``ranks[d * model + m]`` at (d, m).  Every rank of the world must call
+    it, those left out of the mesh too: they take part in creating its
+    groups (their coordinate is then None).  The mesh's device type is
+    the ranks' (``cuda`` once :func:`init_ranks` has set this rank's card,
+    else ``cpu``)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    n = int(data) * int(model)
+    ranks = list(range(n)) if ranks is None else [int(r) for r in ranks][:n]
+    if len(ranks) != n:
+        raise ValueError(f"a {data}x{model} mesh needs {n} ranks, got {len(ranks)}")
+    if n > dist.get_world_size():
+        raise ValueError(f"a {data}x{model} mesh needs {n} ranks; the world has "
+                         f"{dist.get_world_size()}")
+    kind = "cuda" if torch.cuda.is_available() and torch.cuda.is_initialized() else "cpu"
+    return DeviceMesh(kind, torch.tensor(ranks, dtype=torch.int64).reshape(int(data), int(model)),
+                      mesh_dim_names=("data", "model"))
+
+
 def make_production_mesh(*, multi_pod: bool = False):
     """The reference's (data=16, model=16) pod, or (pod=2, 16, 16): only the
     dry run lowers onto it, and the dry run waits for slice C6 of the port."""
@@ -120,8 +146,9 @@ def backend_for(device, world_size: int) -> str:
 def init_ranks(rank: Optional[int] = None, world_size: Optional[int] = None, *,
                device=None, store_path: Optional[str] = None, backend: Optional[str] = None,
                timeout_s: float = 300.0):
-    """Start this rank's process group and return the data group (the
-    world: the port's ranks run the data axis only).
+    """Start this rank's process group and return its world group (the
+    data group of ``--mesh D,1``; :func:`make_device_mesh` lays a
+    ``(data, model)`` mesh over it).
 
     ``rank`` and ``world_size`` default to ``torchrun``'s ``RANK`` and
     ``WORLD_SIZE``; the rendezvous is a ``FileStore`` at ``store_path``

@@ -11,27 +11,34 @@ around a synchronise, and tokens per second.  Step times feed a
 ``CCPScheduler`` as the reference's heartbeat telemetry does.
 ``--smoke --device cpu`` trains the smoke config on the CPU.
 
-``--mesh D,1`` with D > 1 trains across D ``torch.distributed`` ranks, one
-process each, started by ``torchrun`` (``WORLD_SIZE`` must be D; or by a
-caller that already initialised the process group)::
+``--mesh D,M`` with D * M > 1 trains across D * M ``torch.distributed``
+ranks, one process each, started by ``torchrun`` (``WORLD_SIZE`` must be
+D * M; or by a caller that already initialised the process group)::
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
-        --arch phi4-mini-3.8b --mesh 4,1 [--coded-dp] ...
+        --arch phi4-mini-3.8b --mesh 2,2 [--coded-dp] ...
 
-Each rank builds the same weights from ``--seed``, takes its shard of the
-same global batch and applies the same averaged update (data parallel);
-``--coded-dp`` makes rank w worker w of the coded step (R-of-(R+K)
-gradient aggregation, R = D).  The ranks' step times feed the
-``CCPScheduler`` as the reference's heartbeat telemetry does; only rank 0
-prints and saves.  Without a process group, ``--coded-dp`` runs the D
-workers in turn on the one device.  ``--ckpt DIR`` saves ``{"params",
-"opt"}`` every ``--ckpt-every`` steps in the background
-(``checkpoint.AsyncCheckpointer``, the reference's format); ``--resume``
-restores the latest step there into the model's tensors and continues the
-loop from it.  A model axis above 1 (``--mesh D,M``, M > 1: tensor
-parallelism on DTensor) waits for slice C5b of the port.  ``--devices``, the
-reference's XLA flag that forces host devices for its mesh, is ignored with
-a note: the port's data axis is ranks, ``torchrun --nproc-per-node D``.
+Each rank builds the same weights from ``--seed``.  ``--mesh D,1`` is data
+parallel: each rank takes its shard of the same global batch and applies
+the same averaged update.  With M > 1 the ranks form a ``(data, model)``
+``DeviceMesh``: the weights are laid out by the reference's sharding rules
+(DTensors, ``parallel.sharding``), each model group computes its data
+rank's rows tensor parallel (K4 on each rank's heads), and AdamW keeps
+ZeRO-1 moments (``runtime.train_loop.make_train_step(mesh=...)``).
+``--coded-dp`` makes data rank w worker w of the coded step (R-of-(R+K)
+gradient aggregation, R = D; whole weights on every rank, the model
+axis's ranks computing their worker alike).  The data ranks' step times
+feed the ``CCPScheduler`` as the reference's heartbeat telemetry does; only
+rank 0 prints and writes checkpoints.  Without a process group,
+``--coded-dp`` runs the D workers in turn on the one device.  ``--ckpt
+DIR`` saves ``{"params", "opt"}`` every ``--ckpt-every`` steps in the
+background (``checkpoint.AsyncCheckpointer``, the reference's format; a
+sharded state is gathered whole, every rank joining); ``--resume``
+restores the latest step there into the model's tensors (each rank its
+shards) and continues the loop from it.  Ranks that share one card take
+gloo (``mesh.backend_for``).  ``--devices``, the reference's XLA flag that
+forces host devices for its mesh, is ignored with a note: the port's mesh
+is ranks, ``torchrun --nproc-per-node D*M``.
 ``REPRO_TRAIN_OVERRIDES`` (``key=int,...``) overrides config fields, as in
 the reference.
 """
@@ -75,19 +82,18 @@ def run(argv=None, group=None) -> dict:
     device, the step the run started from, and with ``--ckpt`` the
     checkpoint's seconds (``restore_s`` of a resume; ``snapshot_s``, the
     loop's wait for the host copy, and ``write_s``, the background write,
-    of the last save).  ``group``: the data group of ``--mesh D,1``'s D
+    of the last save).  ``group``: the group of ``--mesh D,M``'s D * M
     ranks (default: the process group's world, started from ``torchrun``'s
-    environment if need be)."""
+    environment if need be); with M > 1 a group short of the world needs
+    the world's other ranks to join ``launch.mesh.make_device_mesh(D, M,
+    its ranks)`` meanwhile (a ``DeviceMesh`` is made by the whole world)."""
     args = _parse_args(argv)
     data_n, model_n = (int(x) for x in args.mesh.split(","))
-    if model_n > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: a model axis above 1 (tensor parallelism on DTensor) waits "
-            "for slice C5b of the port; --mesh D,1 trains data parallel across D ranks")
+    n_ranks = data_n * model_n
     if args.devices:
         print(f"note: --devices {args.devices} forces XLA host devices in the reference; "
-              "the port ignores it: --mesh D,1 runs across D ranks (torchrun "
-              "--nproc-per-node D)", file=sys.stderr)
+              "the port ignores it: --mesh D,M runs across D*M ranks (torchrun "
+              "--nproc-per-node D*M)", file=sys.stderr)
 
     import numpy as np
     import torch
@@ -101,24 +107,31 @@ def run(argv=None, group=None) -> dict:
     from repro_torch.launch import mesh
     from repro_torch.models import build_model
     from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel import tensor as tp
     from repro_torch.runtime.train_loop import make_coded_train_step, make_train_step
 
-    rank = 0
-    if group is None and data_n > 1 and (dist.is_initialized()
-                                         or int(os.environ.get("WORLD_SIZE", 1)) > 1):
+    rank, dmesh = 0, None
+    if group is None and n_ranks > 1 and (dist.is_initialized()
+                                          or int(os.environ.get("WORLD_SIZE", 1)) > 1):
         group = dist.group.WORLD if dist.is_initialized() else mesh.init_ranks(device=args.device)
     if group is not None:
         rank = dist.get_rank(group)
-        if dist.get_world_size(group) != data_n:
-            raise ValueError(f"--mesh {args.mesh} needs {data_n} ranks, the data group has "
+        if dist.get_world_size(group) != n_ranks:
+            raise ValueError(f"--mesh {args.mesh} needs {n_ranks} ranks, the group has "
                              f"{dist.get_world_size(group)}")
         dev = mesh.rank_device(args.device, dist.get_rank())
-    elif data_n > 1 and not args.coded_dp:
-        raise ValueError(f"--mesh {args.mesh} trains across {data_n} ranks: start it under "
-                         f"torchrun --nproc-per-node {data_n} (or add --coded-dp to run the "
-                         "workers in turn on one device)")
+        if model_n > 1:
+            dmesh = mesh.make_device_mesh(data_n, model_n,
+                                          dist.get_process_group_ranks(group))
+            group = dmesh.get_group("data")  # the workers and their heartbeats
+    elif n_ranks > 1 and not (args.coded_dp and model_n == 1):
+        raise ValueError(f"--mesh {args.mesh} trains across {n_ranks} ranks: start it under "
+                         f"torchrun --nproc-per-node {n_ranks} (or, with --mesh D,1, add "
+                         "--coded-dp to run the workers in turn on one device)")
     else:
         dev = _device.resolve(args.device)
+    data_rank = rank if dmesh is None else dmesh.get_coordinate()[0]
     _device.full_fp32_matmuls(dev)
     say = print if rank == 0 else (lambda *a, **k: None)
     overrides = {}
@@ -127,14 +140,21 @@ def run(argv=None, group=None) -> dict:
         overrides[k] = int(v)
     cfg = get_config(args.arch, smoke=args.smoke, **overrides)
     model = build_model(cfg, remat=True)
-    params = model.init(args.seed, device=dev)
+    tensor_parallel = dmesh is not None and not args.coded_dp
+    params, axes = model.init(args.seed, device=dev, with_axes=True)
+    if tensor_parallel:
+        rules = sharding.make_rules(cfg, dmesh)
+        params = tp.place_tree(params, sharding.param_shardings(dmesh, axes, rules))
+        opt_state = adamw.init(params, sharding.opt_state_shardings(dmesh, axes, rules, params))
+    else:
+        opt_state = adamw.init(params)
     opt_cfg = adamw.AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
                                 total_steps=args.steps)
-    opt_state = adamw.init(params)
     data = SyntheticLM(cfg.vocab, args.seq, args.batch, n_micro=args.n_micro, seed=args.seed)
     start, ckpt, ckpt_times = 0, None, {}
     if args.ckpt:
-        ckpt = ck.AsyncCheckpointer(args.ckpt) if rank == 0 else None
+        # a sharded state is gathered on every rank: each joins the save
+        ckpt = ck.AsyncCheckpointer(args.ckpt) if rank == 0 or tensor_parallel else None
         if args.resume and ck.latest_step(args.ckpt) is not None:
             t0 = time.perf_counter()
             state, meta = ck.restore(args.ckpt, None, {"params": params, "opt": opt_state})
@@ -147,9 +167,9 @@ def run(argv=None, group=None) -> dict:
 
     sched = CCPScheduler(n_workers=data_n)
     if args.coded_dp:
-        step_fn, code, (pats, ws) = make_coded_train_step(model, opt_cfg, data_n,
-                                                          seed=args.seed, device=dev,
-                                                          group=group)
+        step_fn, code, (pats, ws) = make_coded_train_step(
+            model, opt_cfg, data_n, seed=args.seed, device=dev,
+            group=None if dmesh else group, mesh=dmesh)
         w0 = ws[0]
 
         def run_step(params, opt_state, batch):
@@ -159,7 +179,7 @@ def run(argv=None, group=None) -> dict:
             return step_fn(params, opt_state, {"tokens": tok, "labels": lab}, w0)
     else:
         run_step = make_train_step(model, opt_cfg, args.n_micro, pre_shaped=True, device=dev,
-                                   group=group)
+                                   group=None if dmesh else group, mesh=dmesh)
 
     def sync():
         if dev.type == "cuda":
@@ -177,10 +197,10 @@ def run(argv=None, group=None) -> dict:
         loss = float(metrics["loss"])
         if group is None:
             sched.observe_step(np.full(data_n, dt))
-        else:  # every rank's own step time: the workers' heartbeats
+        else:  # every data rank's own step time: the workers' heartbeats
             times = torch.zeros(data_n, dtype=torch.float64, device=dev)
-            times[rank] = dt
-            dist.all_reduce(times, group=group)
+            times[data_rank] = dt
+            dist.all_reduce(times, op=dist.ReduceOp.MAX, group=group)
             sched.observe_step(times.cpu().numpy())
         rec = dict(step=step, loss=loss, grad_norm=float(metrics["grad_norm"]),
                    lr=float(metrics["lr"]), ms=dt * 1e3,
@@ -200,10 +220,27 @@ def run(argv=None, group=None) -> dict:
         ckpt_times.update(snapshot_s=ckpt.snapshot_s, write_s=ckpt.write_s)
     wall = time.perf_counter() - t_start
     say(f"done: {args.steps - start} steps in {wall:.1f}s on {dev}"
-        + (f" x {data_n} ranks" if group is not None else "") + f", final loss {loss:.4f}")
+        + (f" x {n_ranks} ranks" if group is not None else "") + f", final loss {loss:.4f}")
     return dict(loss=loss, history=history, cfg=cfg, device=dev, wall_s=wall,
                 sched_e_beta=sched.e_beta, start=start, ckpt=ckpt_times, rank=rank,
-                ranks=1 if group is None else data_n)
+                ranks=1 if group is None else n_ranks)
+
+
+def rank_main(rank: int, world_size: int, store_path: str, argv) -> dict:
+    """``run(argv)`` as rank ``rank`` of ``world_size`` ranks that
+    ``launch.mesh.spawn_ranks`` started (a FileStore rendezvous at
+    ``store_path``, the device of ``argv``'s ``--device``); returns the
+    losses, the rank's count of ranks, and the top-level packages of the
+    modules the rank imported."""
+    from repro_torch.launch import mesh
+
+    mesh.init_ranks(rank, world_size, device=_parse_args(argv).device, store_path=store_path)
+    res = run(argv)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return dict(losses=[h["loss"] for h in res["history"]], ranks=res["ranks"],
+                modules=sorted({m.split(".")[0] for m in sys.modules}))
 
 
 def main(argv=None):

@@ -16,6 +16,14 @@ The cache of one layer is ``{"k": (B, Hkv, Tmax, hd), "v": ..., "pos": int}``
 cache is immutable and its ``pos`` a traced scalar; here the buffers are
 written in place and ``pos`` is a Python int, so prefill and decode make no
 host sync per layer.  The returned cache shares the buffers.
+
+Parameters laid out over a ``(data, model)`` mesh (DTensors,
+``parallel.tensor``) run tensor parallel without a cache: with the heads
+split over the model axis each rank projects its own q heads (and its kv
+heads, or the whole kv projection when the rules keep the kv heads whole),
+K4 runs on its local heads (``flash_attention`` takes the DTensors), and
+the output projection's partial sums are added over the axis; otherwise
+the ranks gather the weights and compute the block alike.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..kernels.flash_attention import flash_attention
+from ..parallel import tensor as tp
 from .common import ParamBuilder, rope_tables, rotate
 from .config import ModelConfig
 
@@ -32,16 +41,16 @@ from .config import ModelConfig
 def init_attention(pb: ParamBuilder, cfg: ModelConfig) -> Dict[str, Any]:
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     p = {
-        "wq": pb.fan_in((d, hq, hd), fan_axis=0),
-        "wk": pb.fan_in((d, hkv, hd), fan_axis=0),
-        "wv": pb.fan_in((d, hkv, hd), fan_axis=0),
-        "wo": pb.fan_in((hq, hd, d), fan_axis=(0, 1)),
+        "wq": pb.fan_in((d, hq, hd), ("embed", "heads", "head_dim"), fan_axis=0),
+        "wk": pb.fan_in((d, hkv, hd), ("embed", "kv_heads", "head_dim"), fan_axis=0),
+        "wv": pb.fan_in((d, hkv, hd), ("embed", "kv_heads", "head_dim"), fan_axis=0),
+        "wo": pb.fan_in((hq, hd, d), ("heads", "head_dim", "embed"), fan_axis=(0, 1)),
     }
     if cfg.attn_bias:
-        p["bq"] = pb.zeros((hq, hd))
-        p["bk"] = pb.zeros((hkv, hd))
-        p["bv"] = pb.zeros((hkv, hd))
-        p["bo"] = pb.zeros((d,))
+        p["bq"] = pb.zeros((hq, hd), ("heads", "head_dim"))
+        p["bk"] = pb.zeros((hkv, hd), ("kv_heads", "head_dim"))
+        p["bv"] = pb.zeros((hkv, hd), ("kv_heads", "head_dim"))
+        p["bo"] = pb.zeros((d,), ("embed",))
     return p
 
 
@@ -103,6 +112,12 @@ def attention(
     (in place) and attends over the valid prefix.  Returns (y, cache')."""
     B, T, _ = x.shape
     window = cfg.window if local else None
+    if tp.is_dtensor(params["wq"]):
+        if cache is not None:
+            raise NotImplementedError("a KV cache of a tensor-parallel model: the port trains "
+                                      "over a model axis and serves on one card")
+        return _attention_tp(params, x, cfg, window, causal, positions, use_rope,
+                             use_kernel), None
     if positions is None:
         base = 0 if cache is None else cache["pos"]
         positions = (base + torch.arange(T, device=x.device))[None, :].expand(B, T)
@@ -137,6 +152,50 @@ def attention(
     o = flash_attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap,
                         use_kernel=use_kernel)
     return _out(params, o), None
+
+
+def _attention_tp(params, x, cfg, window, causal, positions, use_rope, use_kernel):
+    """The no-cache attention of DTensor parameters (see the module's
+    docstring): K4 on each rank's heads."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    B, T, _ = x.shape
+    (wq, wo), group = tp.split((params["wq"], 1), (params["wo"], 0))
+    local = {"wq": wq}
+    kv_split = False
+    if group is None:  # heads whole on every rank: the block computed alike
+        local.update(wk=tp.whole(params["wk"]), wv=tp.whole(params["wv"]))
+    else:
+        (wk, wv), kv_group = tp.split((params["wk"], 1), (params["wv"], 1))
+        kv_split = kv_group is not None
+        if not kv_split:  # kv heads whole: their gradient is summed over the axis
+            wk, wv = tp.copy_to(wk, group), tp.copy_to(wv, group)
+        local.update(wk=wk, wv=wv)
+        x = tp.copy_to(x, group)
+    if "bq" in params:
+        local["bq"] = tp.local(params["bq"]) if group is not None else tp.whole(params["bq"])
+        for b in ("bk", "bv"):
+            bias = tp.local(params[b]) if kv_split else tp.whole(params[b])
+            local[b] = tp.copy_to(bias, group) if group is not None and not kv_split else bias
+    if positions is None:
+        positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
+    q, k, v = _project(local, x, use_rope, positions, cfg)
+    mesh = tp.model_mesh(params["wq"])
+
+    def wrap(t, split_heads, heads):
+        shape = (B, heads, *t.shape[2:])
+        return DTensor.from_local(t, mesh, [Shard(1) if split_heads else Replicate()],
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=torch.empty(shape, device="meta").stride())
+
+    o = flash_attention(wrap(q, group is not None, cfg.n_heads),
+                        wrap(k, kv_split, cfg.n_kv_heads), wrap(v, kv_split, cfg.n_kv_heads),
+                        causal=causal, window=window, softcap=cfg.attn_softcap,
+                        use_kernel=use_kernel).to_local()
+    y = tp.reduce_from(_out({"wo": wo}, o), group)
+    if "bo" in params:
+        y = y + tp.whole(params["bo"]).to(y.dtype)
+    return y
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

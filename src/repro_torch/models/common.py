@@ -7,8 +7,14 @@ reproduce; :class:`ParamBuilder` draws the same distributions from a
 ``torch.Generator`` on a given device, so a full-size model is initialised
 on the card without passing through the host.  Tests that need the
 reference's exact weights load them with ``interop.lm_params_from_numpy``.
-The logical sharding axes of the reference have no counterpart yet (the
-port runs on one card).
+
+Every draw also takes the leaf's logical axis names (``("embed", "heads",
+"head_dim")``), the reference's, which the builder records beside the
+value: :meth:`ParamBuilder.axes_of` gives the axes tree of a parameter
+tree it built, and ``parallel.sharding`` maps those names to the
+``(data, model)`` mesh.  A builder without a generator draws nothing: its
+leaves lie on the ``meta`` device (the axes and shapes of a model at no
+cost).
 """
 
 from __future__ import annotations
@@ -36,46 +42,68 @@ def tree_leaves(tree: PyTree) -> List[torch.Tensor]:
 
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     """``fn`` over the leaves of ``tree`` (and the matching leaves of
-    ``rest``), keeping its structure."""
+    ``rest``), keeping its structure (dicts, lists, tuples, NamedTuples)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+        items = [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
     return fn(tree, *rest)
+
+
+Axes = Tuple[Optional[str], ...]
 
 
 @dataclasses.dataclass
 class ParamBuilder:
-    """Draws parameters from one generator, on its device."""
+    """Draws parameters from one generator, on its device, and records each
+    leaf's logical axes (``axes``, one name or None a dimension; omitted,
+    every dimension is None).  ``generator=None``: no draws, every leaf an
+    empty tensor on the ``meta`` device."""
 
-    generator: torch.Generator
+    generator: Optional[torch.Generator]
     param_dtype: torch.dtype = torch.float32
+    _axes: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def device(self) -> torch.device:
-        return self.generator.device
+        return torch.device("meta") if self.generator is None else self.generator.device
 
-    def normal(self, shape, stddev: float = 0.02) -> torch.Tensor:
+    def _leaf(self, v: torch.Tensor, axes: Optional[Axes]) -> torch.Tensor:
+        axes = (None,) * v.dim() if axes is None else tuple(axes)
+        if len(axes) != v.dim():
+            raise ValueError(f"axes {axes} for a leaf of shape {tuple(v.shape)}")
+        self._axes[id(v)] = (v, axes)  # the value is held so its id stays its own
+        return v
+
+    def axes_of(self, tree: PyTree) -> PyTree:
+        """The logical axes of every leaf of ``tree``, built by this builder."""
+        return tree_map(lambda v: self._axes[id(v)][1], tree)
+
+    def normal(self, shape, axes: Optional[Axes] = None, stddev: float = 0.02) -> torch.Tensor:
+        if self.generator is None:
+            return self._leaf(torch.empty(shape, dtype=self.param_dtype, device="meta"), axes)
         v = torch.randn(shape, generator=self.generator, device=self.device,
                         dtype=torch.float32)
-        return v.mul_(stddev).to(self.param_dtype)
+        return self._leaf(v.mul_(stddev).to(self.param_dtype), axes)
 
-    def fan_in(self, shape, fan_axis=0) -> torch.Tensor:
-        axes = (fan_axis,) if isinstance(fan_axis, int) else tuple(fan_axis)
+    def fan_in(self, shape, axes: Optional[Axes] = None, fan_axis=0) -> torch.Tensor:
+        dims = (fan_axis,) if isinstance(fan_axis, int) else tuple(fan_axis)
         fan = 1
-        for ax in axes:
+        for ax in dims:
             fan *= shape[ax]
-        return self.normal(shape, fan ** -0.5)
+        return self.normal(shape, axes, fan ** -0.5)
 
-    def zeros(self, shape) -> torch.Tensor:
-        return torch.zeros(shape, dtype=self.param_dtype, device=self.device)
+    def zeros(self, shape, axes: Optional[Axes] = None) -> torch.Tensor:
+        return self._leaf(torch.zeros(shape, dtype=self.param_dtype, device=self.device), axes)
 
-    def ones(self, shape) -> torch.Tensor:
-        return torch.ones(shape, dtype=self.param_dtype, device=self.device)
+    def ones(self, shape, axes: Optional[Axes] = None) -> torch.Tensor:
+        return self._leaf(torch.ones(shape, dtype=self.param_dtype, device=self.device), axes)
 
-    def const(self, value) -> torch.Tensor:
+    def const(self, value, axes: Optional[Axes] = None) -> torch.Tensor:
         """A fixed value (no draw), in the param dtype on the device."""
-        return torch.as_tensor(value).to(device=self.device, dtype=self.param_dtype)
+        return self._leaf(torch.as_tensor(value).to(device=self.device, dtype=self.param_dtype),
+                          axes)
 
 
 # ---------------------------------------------------------------------------

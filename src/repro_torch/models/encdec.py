@@ -46,19 +46,22 @@ def _init_dec_block(pb: ParamBuilder, cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-def init_encdec(generator: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
+def init_encdec(generator: Optional[torch.Generator], cfg: ModelConfig,
+                with_axes: bool = False):
     """Full init on the generator's device, in the reference's draw order
     (its extra draw of one encoder and one decoder block for the axes tree
     has no counterpart: the port's numbers differ from the reference's
-    anyway)."""
+    anyway).  ``with_axes``: ``(params, axes)``, the axes a tree like the
+    params' (one tuple a leaf)."""
     pb = ParamBuilder(generator, param_dtype=getattr(torch, cfg.param_dtype))
-    return {
-        "embed": pb.normal((cfg.vocab, cfg.d_model), stddev=0.02),
+    params = {
+        "embed": pb.normal((cfg.vocab, cfg.d_model), ("vocab", "embed"), stddev=0.02),
         "enc_final_norm": _init_norm(pb, cfg),
         "final_norm": _init_norm(pb, cfg),
         "encoder": [_init_enc_block(pb, cfg) for _ in range(cfg.n_enc_layers)],
         "decoder": [_init_dec_block(pb, cfg) for _ in range(cfg.n_layers)],
     }
+    return (params, pb.axes_of(params)) if with_axes else params
 
 
 def encode(params, frames: torch.Tensor, cfg: ModelConfig, *,

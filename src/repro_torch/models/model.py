@@ -10,32 +10,41 @@ from typing import Any, Callable, Optional, Union
 import torch
 
 from .. import _device
+from ..parallel import tensor as tp
 from . import encdec as encdec_mod
 from . import transformer as tf_mod
 from .config import ModelConfig
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token CE in fp32. logits (B,T,V) fp32, labels (B,T) int."""
+    """Mean token CE in fp32. logits (B,T,V) fp32, labels (B,T) int.
+    Logits split over the vocabulary on a model axis (a DTensor, the
+    tensor-parallel LM) take the vocab-parallel loss
+    (``parallel.tensor.cross_entropy``): no rank gathers them whole."""
+    if tp.is_dtensor(logits):
+        return tp.cross_entropy(logits, labels)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return (lse - gold).mean()
 
 
-def _generator(seed: Union[int, torch.Generator], device) -> torch.Generator:
-    if isinstance(seed, torch.Generator):
+def _generator(seed: Union[int, torch.Generator, None], device) -> Optional[torch.Generator]:
+    if seed is None or isinstance(seed, torch.Generator):
         return seed
     return torch.Generator(device=_device.resolve(device)).manual_seed(int(seed))
 
 
 @dataclasses.dataclass
 class Model:
-    """Bundle of functions for one architecture.  Unlike the reference's
-    ``init(key) -> (params, axes)``, ``init(seed, device=None)`` returns the
-    params alone (the port has no sharding axes yet), drawn on the device."""
+    """Bundle of functions for one architecture.  ``init(seed, device=None)``
+    returns the params drawn on the device; ``init(seed, device,
+    with_axes=True)`` returns ``(params, axes)`` as the reference's
+    ``init(key)`` does (its logical axes in the port's per-layer layout:
+    ``parallel.sharding`` maps them to a mesh); ``init(None,
+    with_axes=True)`` builds ``meta`` tensors, the shapes and axes alone."""
 
     cfg: ModelConfig
-    init: Callable[..., Any]                 # (seed | generator, device) -> params
+    init: Callable[..., Any]                 # (seed | generator | None, device, with_axes)
     loss_fn: Callable[..., torch.Tensor]     # (params, batch) -> loss
     forward: Callable[..., torch.Tensor]     # logits
     prefill: Callable[..., Any]              # (params, tokens, cache) -> (logits (B,V), cache')
@@ -55,8 +64,8 @@ def build_model(cfg: ModelConfig, *, use_kernel: Optional[bool] = None,
     if cfg.enc_dec:
         return _build_encdec(cfg, use_kernel)
 
-    def init(seed: Union[int, torch.Generator] = 0, device=None):
-        return tf_mod.init_lm(_generator(seed, device), cfg)
+    def init(seed: Union[int, torch.Generator, None] = 0, device=None, with_axes: bool = False):
+        return tf_mod.init_lm(_generator(seed, device), cfg, with_axes)
 
     def forward(params, tokens, embeds=None):
         logits, _, _ = tf_mod.lm_forward(params, tokens, cfg, embeds=embeds,
@@ -97,12 +106,15 @@ def _build_encdec(cfg: ModelConfig, use_kernel: Optional[bool]) -> Model:
     """Whisper: ``embeds`` (B, T_enc, D) are the stub frames the encoder
     reads.  The cache is {"dec": per-layer KV caches, "cross_kv": per-layer
     cross-attention K/V}; ``cross_kv`` is None until the prefill projects
-    the encoder output once (the reference allocates zeros there)."""
+    the encoder output once (the reference allocates zeros there).
+    Parameters laid out over a mesh (DTensors) are gathered whole: the
+    model axis's ranks compute the encoder-decoder alike."""
 
-    def init(seed: Union[int, torch.Generator] = 0, device=None):
-        return encdec_mod.init_encdec(_generator(seed, device), cfg)
+    def init(seed: Union[int, torch.Generator, None] = 0, device=None, with_axes: bool = False):
+        return encdec_mod.init_encdec(_generator(seed, device), cfg, with_axes)
 
     def forward(params, tokens, embeds=None):
+        params = tp.whole_tree(params)
         enc = encdec_mod.encode(params, embeds, cfg, use_kernel=use_kernel)
         logits, _ = encdec_mod.decode(params, tokens, enc, cfg, use_kernel=use_kernel)
         return logits

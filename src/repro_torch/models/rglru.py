@@ -38,18 +38,18 @@ def init_rglru_block(pb: ParamBuilder, cfg: ModelConfig) -> Dict[str, Any]:
     cw = cfg.conv_width
     a = torch.linspace(0.9, 0.999, w, dtype=torch.float32)
     return {
-        "w_gate": pb.fan_in((d, w), fan_axis=0),
-        "w_x": pb.fan_in((d, w), fan_axis=0),
-        "conv": pb.normal((cw, w), stddev=cw ** -0.5),
-        "conv_b": pb.zeros((w,)),
-        "wa": pb.fan_in((w, w), fan_axis=0),
-        "ba": pb.zeros((w,)),
-        "wi": pb.fan_in((w, w), fan_axis=0),
-        "bi": pb.zeros((w,)),
+        "w_gate": pb.fan_in((d, w), ("embed", "state"), fan_axis=0),
+        "w_x": pb.fan_in((d, w), ("embed", "state"), fan_axis=0),
+        "conv": pb.normal((cw, w), (None, "state"), stddev=cw ** -0.5),
+        "conv_b": pb.zeros((w,), ("state",)),
+        "wa": pb.fan_in((w, w), ("state", None), fan_axis=0),
+        "ba": pb.zeros((w,), ("state",)),
+        "wi": pb.fan_in((w, w), ("state", None), fan_axis=0),
+        "bi": pb.zeros((w,), ("state",)),
         # Lambda init so that a (at r=1) is uniform in [0.9, 0.999]:
         # log a = -c*softplus(Lambda)  =>  Lambda = log(expm1(-log(a)/c))
-        "lam": pb.const(torch.log(torch.expm1(-torch.log(a) / _C))),
-        "w_down": pb.fan_in((w, d), fan_axis=0),
+        "lam": pb.const(torch.log(torch.expm1(-torch.log(a) / _C)), ("state",)),
+        "w_down": pb.fan_in((w, d), ("state", "embed"), fan_axis=0),
     }
 
 

@@ -20,6 +20,16 @@ only the layer's input, ``"dots"`` also keeps the matrix products' outputs
 ``jax.checkpoint_policies.checkpoint_dots``).  The reference checkpoints each
 group of ``block_pattern``; the port each layer.  Either way every
 attention's forward runs twice in a training step.
+
+Parameters laid out over a ``(data, model)`` mesh (DTensors by the rules of
+``parallel.sharding``) train tensor parallel: attention and the dense MLP
+split over the model axis where the rules split their heads and ff
+(``attention.py``, ``mlp.py``), the embedding table and the LM head over
+the vocabulary (a masked lookup summed over the axis; logits that stay
+split, a DTensor, for the vocab-parallel loss), and the rest (norms, the
+dense MoE, the recurrent mixers, a layout the rules leave otherwise)
+gathered whole and computed alike on the axis's ranks
+(``parallel.tensor``).
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from . import mlp as mlp_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import xlstm as xlstm_mod
+from ..parallel import tensor as tp
 from .common import ParamBuilder, layer_norm, rms_norm, softcap
 from .config import ModelConfig
 
@@ -65,16 +76,16 @@ def block_kinds(cfg: ModelConfig) -> List[str]:
 
 def _norm(cfg: ModelConfig, params, x):
     if cfg.norm == "layernorm":
-        return layer_norm(x, params["scale"], params.get("bias"))
-    return rms_norm(x, params["scale"], scale_plus_one=cfg.rms_scale_plus_one)
+        return layer_norm(x, tp.whole(params["scale"]), tp.whole(params.get("bias")))
+    return rms_norm(x, tp.whole(params["scale"]), scale_plus_one=cfg.rms_scale_plus_one)
 
 
 def _init_norm(pb: ParamBuilder, cfg: ModelConfig) -> Dict[str, Any]:
     d = cfg.d_model
     if cfg.norm == "layernorm":
-        return {"scale": pb.ones((d,)), "bias": pb.zeros((d,))}
+        return {"scale": pb.ones((d,), ("embed",)), "bias": pb.zeros((d,), ("embed",))}
     init = pb.zeros if cfg.rms_scale_plus_one else pb.ones
-    return {"scale": init((d,))}
+    return {"scale": init((d,), ("embed",))}
 
 
 def init_block(pb: ParamBuilder, cfg: ModelConfig, kind: str) -> Dict[str, Any]:
@@ -110,11 +121,11 @@ def apply_block(
         y, cache = attn_mod.attention(params["mixer"], h, cfg, local=kind == "attn_local",
                                       cache=cache, use_kernel=use_kernel)
     elif kind == "rglru":
-        y, cache = rglru_mod.rglru_block(params["mixer"], h, cfg, cache)
+        y, cache = rglru_mod.rglru_block(tp.whole_tree(params["mixer"]), h, cfg, cache)
     elif kind == "mlstm":
-        y, cache = xlstm_mod.mlstm(params["mixer"], h, cfg, cache)
+        y, cache = xlstm_mod.mlstm(tp.whole_tree(params["mixer"]), h, cfg, cache)
     elif kind == "slstm":
-        y, cache = xlstm_mod.slstm(params["mixer"], h, cfg, cache)
+        y, cache = xlstm_mod.slstm(tp.whole_tree(params["mixer"]), h, cfg, cache)
     else:
         raise ValueError(kind)
     if cfg.post_block_norm:
@@ -194,16 +205,20 @@ def decoder_stack(
     return x, new_caches, aux
 
 
-def init_lm(generator: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
+def init_lm(generator: Optional[torch.Generator], cfg: ModelConfig, with_axes: bool = False):
     """Full LM init on the generator's device (the reference's distributions,
-    not its numbers)."""
+    not its numbers; no generator: ``meta`` tensors).  ``with_axes``:
+    ``(params, axes)``, the reference's logical axes of every leaf in the
+    port's layout (a layer's leaves without the reference's leading
+    ``"layers"``)."""
     pb = ParamBuilder(generator, param_dtype=getattr(torch, cfg.param_dtype))
-    params: Dict[str, Any] = {"embed": pb.normal((cfg.vocab, cfg.d_model), stddev=0.02)}
+    params: Dict[str, Any] = {"embed": pb.normal((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                                                 stddev=0.02)}
     params["blocks"] = init_decoder(pb, cfg)
     params["final_norm"] = _init_norm(pb, cfg)
     if not cfg.tie_embeddings:
-        params["lm_head"] = pb.fan_in((cfg.d_model, cfg.vocab), fan_axis=0)
-    return params
+        params["lm_head"] = pb.fan_in((cfg.d_model, cfg.vocab), ("embed", "vocab"), fan_axis=0)
+    return (params, pb.axes_of(params)) if with_axes else params
 
 
 def lm_forward(
@@ -230,7 +245,7 @@ def lm_forward(
     if embeds is not None:
         parts.append(embeds.to(cdt))
     if tokens is not None:
-        parts.append(params["embed"][tokens.long()].to(cdt))
+        parts.append(tp.embedding(params["embed"], tokens).to(cdt))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt)
@@ -240,7 +255,12 @@ def lm_forward(
     if last_only:
         x = x[:, -1:]
     head = params.get("lm_head")
-    if head is None:
+    if tp.is_dtensor(params["embed"]):
+        logits = tp.vocab_logits(x, params["embed"] if head is None else head, head is None)
+        if tp.is_dtensor(logits):  # this rank's vocabulary range
+            return tp.like(softcap(logits.to_local().float(), cfg.final_softcap),
+                           logits), caches, aux
+    elif head is None:
         logits = x @ params["embed"].to(cdt).t()
     else:
         logits = x @ head.to(cdt)

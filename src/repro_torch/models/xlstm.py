@@ -41,10 +41,10 @@ def init_slstm(pb: ParamBuilder, cfg: ModelConfig) -> Dict[str, Any]:
     # input projections for (z, i, f, o); recurrent weights are block-diagonal
     # per head: (H, dh, dh).
     return {
-        "w_in": pb.fan_in((d, 4, H, dh), fan_axis=0),
-        "r": pb.fan_in((4, H, dh, dh), fan_axis=2),
-        "b": pb.zeros((4, H, dh)),
-        "w_out": pb.fan_in((H, dh, d), fan_axis=(0, 1)),
+        "w_in": pb.fan_in((d, 4, H, dh), ("embed", None, "heads", "head_dim"), fan_axis=0),
+        "r": pb.fan_in((4, H, dh, dh), (None, "heads", "head_dim", None), fan_axis=2),
+        "b": pb.zeros((4, H, dh), (None, "heads", "head_dim")),
+        "w_out": pb.fan_in((H, dh, d), ("heads", "head_dim", "embed"), fan_axis=(0, 1)),
     }
 
 
@@ -95,14 +95,14 @@ def init_mlstm(pb: ParamBuilder, cfg: ModelConfig) -> Dict[str, Any]:
     di = int(d * cfg.mlstm_proj_factor)
     dh = di // H
     return {
-        "w_up": pb.fan_in((d, di), fan_axis=0),
-        "w_gate": pb.fan_in((d, di), fan_axis=0),
-        "wq": pb.fan_in((di, H, dh), fan_axis=0),
-        "wk": pb.fan_in((di, H, dh), fan_axis=0),
-        "wv": pb.fan_in((di, H, dh), fan_axis=0),
-        "w_if": pb.fan_in((di, 2, H), fan_axis=0),
-        "b_if": pb.const(torch.tensor([[0.0], [1.0]])),
-        "w_down": pb.fan_in((di, d), fan_axis=0),
+        "w_up": pb.fan_in((d, di), ("embed", "ff"), fan_axis=0),
+        "w_gate": pb.fan_in((d, di), ("embed", "ff"), fan_axis=0),
+        "wq": pb.fan_in((di, H, dh), ("ff", "heads", "head_dim"), fan_axis=0),
+        "wk": pb.fan_in((di, H, dh), ("ff", "heads", "head_dim"), fan_axis=0),
+        "wv": pb.fan_in((di, H, dh), ("ff", "heads", "head_dim"), fan_axis=0),
+        "w_if": pb.fan_in((di, 2, H), ("ff", None, "heads"), fan_axis=0),
+        "b_if": pb.const(torch.tensor([[0.0], [1.0]]), (None, "heads")),
+        "w_down": pb.fan_in((di, d), ("ff", "embed"), fan_axis=0),
     }
 
 

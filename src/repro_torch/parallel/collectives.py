@@ -25,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.common import tree_leaves, tree_map
+from . import tensor
 
 __all__ = ["all_reduce_tree", "coded_psum", "sharded_cross_entropy", "weighted_sum"]
 
@@ -33,18 +34,19 @@ PyTree = Any
 BUCKET_BYTES = 256 << 20
 
 
-def all_reduce_tree(tree: PyTree, group=None) -> PyTree:
+def all_reduce_tree(tree: PyTree, group=None, kind: str = "all_reduce_tree") -> PyTree:
     """Sum every leaf of ``tree`` over ``group`` in place and return it,
-    bucketed as the module says."""
+    bucketed as the module says (counted under ``kind`` in
+    ``parallel.tensor.COUNTS``)."""
     leaves = tree_leaves(tree)
     bucket: List[torch.Tensor] = []
 
     def flush():
         if len(bucket) == 1:
-            dist.all_reduce(bucket[0], group=group)
+            tensor.all_reduce(bucket[0], group, kind=kind)
         elif bucket:
             flat = torch.cat([x.reshape(-1) for x in bucket])
-            dist.all_reduce(flat, group=group)
+            tensor.all_reduce(flat, group, kind=kind)
             for x, piece in zip(bucket, flat.split([x.numel() for x in bucket])):
                 x.copy_(piece.view_as(x))
         bucket.clear()
@@ -61,7 +63,7 @@ def all_reduce_tree(tree: PyTree, group=None) -> PyTree:
         if nbytes > BUCKET_BYTES:
             flat, piece = x.view(-1), BUCKET_BYTES // x.element_size()
             for i in range(0, flat.numel(), piece):
-                dist.all_reduce(flat[i:i + piece], group=group)
+                tensor.all_reduce(flat[i:i + piece], group, kind=kind)
             continue
         bucket.append(x)
         size += nbytes

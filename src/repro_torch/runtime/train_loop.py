@@ -18,6 +18,19 @@ over the group (the reference's weighted ``psum`` over the data axis);
 without one the R workers run in turn and the sum is taken in worker
 order.
 
+Given a ``(data, model)`` ``DeviceMesh`` of ranks instead
+(:func:`repro_torch.launch.mesh.make_device_mesh`), ``make_train_step``
+trains tensor parallel: the parameters are DTensors laid out by the
+reference's rules (``parallel.sharding``, ``parallel.tensor.place_tree``),
+each data rank takes its rows of the batch where ``batch_spec`` splits it
+(the whole batch where it does not divide), the model axis's ranks compute
+their heads, ff columns and vocabulary range, the gradients (DTensors laid
+out as the parameters) are summed over 'data', and AdamW updates
+ZeRO-1-sharded moments.  ``make_coded_train_step`` takes such a mesh too:
+as in the reference's coded step the parameters are whole on every rank,
+data rank w is worker w and the weighted sum runs over 'data' only (the
+model axis's ranks compute their worker alike).
+
 Gradients come from ``torch.autograd.grad`` on detached aliases of the
 parameter leaves, so the caller's tensors need not require grad and carry
 no ``.grad``.  The optimizer updates in place (``optim.adamw.apply``).
@@ -37,6 +50,8 @@ from ..models.common import tree_leaves, tree_map
 from ..models.model import Model
 from ..optim import adamw
 from ..parallel import collectives
+from ..parallel import tensor as tp
+from ..parallel.sharding import batch_spec, mesh_shape
 
 PyTree = Any
 
@@ -69,6 +84,21 @@ def _rank_slice(micro: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor
     return {k: one(v) for k, v in micro.items()}
 
 
+def _data_rows(micro: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """This data rank's rows of every microbatch of a (n_micro, mb, ...)
+    batch where ``batch_spec`` splits mb over 'data'; the whole microbatch
+    where it does not divide (as the reference's spec leaves it)."""
+    d, D = mesh.get_coordinate()[0], mesh_shape(mesh)["data"]
+
+    def one(x):
+        mb = x.shape[1]
+        if batch_spec(mesh, mb)[0] is None:
+            return x
+        return x[:, d * (mb // D):(d + 1) * (mb // D)]
+
+    return {k: one(v) for k, v in micro.items()}
+
+
 def _device_of(params: PyTree) -> torch.device:
     return tree_leaves(params)[0].device
 
@@ -83,12 +113,13 @@ def _on(params: PyTree, dev: torch.device) -> torch.device:
 
 def value_and_grad(loss_fn: Callable, params: PyTree, batch) -> Tuple[torch.Tensor, PyTree]:
     """``(loss, grads)`` of ``loss_fn(params, batch)``: the loss detached,
-    the gradients a tree like ``params``."""
+    the gradients a tree like ``params`` (a DTensor's as its local
+    tensor)."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     with torch.enable_grad():
         loss = loss_fn(live, batch)
         grads = torch.autograd.grad(loss, tree_leaves(live))
-    it = iter(grads)
+    it = iter(tp.local(g) for g in grads)
     return loss.detach(), tree_map(lambda _: next(it), params)
 
 
@@ -117,6 +148,7 @@ def make_train_step(
     pre_shaped: bool = False,
     device=None,
     group=None,
+    mesh=None,
 ) -> Callable:
     """(params, opt_state, batch) -> (params', opt_state', metrics), the
     parameters and moments updated in place.
@@ -135,20 +167,33 @@ def make_train_step(
     update, the one-process step's on the whole batch.
     ``train_step.grads(params, batch)`` returns that gradient and loss
     without a step.
+
+    ``mesh``: a ``(data, model)`` ``DeviceMesh`` (the module's docstring);
+    ``params`` DTensors on it, the optimizer state from
+    ``adamw.init(params, opt_state_shardings)``.  Every rank is given the
+    same global batch; the gradients returned are DTensors laid out as the
+    parameters, whole over 'data'.
     """
     dev = _device.resolve(device)
+    if group is not None and mesh is not None:
+        raise ValueError("give a data group or a mesh, not both")
+    data_group = group
+    if mesh is not None and mesh_shape(mesh)["data"] > 1:
+        data_group = mesh.get_group("data")
 
     def step_grads(params, batch):
         b = _as_tensors(batch, _on(params, dev))
         mb = b if pre_shaped else _reshape_micro(b, n_microbatches)
         if group is not None:
             mb = _rank_slice(mb, group)
+        elif mesh is not None:
+            mb = _data_rows(mb, mesh)
         grads, loss = accumulate_grads(model, params, mb)
-        if group is not None:
-            D = dist.get_world_size(group)
-            collectives.all_reduce_tree((grads, loss), group)
+        if data_group is not None:
+            D = dist.get_world_size(data_group)
+            collectives.all_reduce_tree((grads, loss), data_group, kind="data_all_reduce")
             grads, loss = tree_map(lambda g: g.div_(D), grads), loss / D
-        return grads, loss
+        return tree_map(tp.like, grads, params), loss
 
     def train_step(params, opt_state, batch):
         grads, loss = step_grads(params, batch)
@@ -182,10 +227,14 @@ def make_coded_train_step(
     seed: int = 0,
     device=None,
     group=None,
+    mesh=None,
 ):
     """Coded-DP training step over ``n_workers`` (R) workers, run in turn
     on ``device`` (as in :func:`make_train_step`), or with ``group`` (a
-    data group of R ranks) rank w as worker w.
+    data group of R ranks) rank w as worker w, or over a ``(data, model)``
+    ``DeviceMesh`` with R data ranks: data rank w is worker w, its model
+    group's ranks compute it alike (whole parameters on every rank), and
+    the sum runs over 'data'.
 
     Returns (train_step, code, weight_table) where
       train_step(params, opt_state, batch, weights) and
@@ -203,6 +252,10 @@ def make_coded_train_step(
     """
     dev = _device.resolve(device)
     R = int(n_workers)
+    if mesh is not None:
+        if group is not None:
+            raise ValueError("give a data group or a mesh, not both")
+        group = mesh.get_group("data")
     if group is not None:
         if dist.get_world_size(group) != R:
             raise ValueError(f"{R} workers need a group of {R} ranks, got "

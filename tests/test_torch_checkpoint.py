@@ -185,8 +185,25 @@ def test_restore_with_device_placement(tmp_path):
     other = {"w": torch.zeros(4, 4, dtype=torch.float64), "b": live["b"]}
     r, _ = ck.restore(tmp_path, 1, other)
     assert r["w"] is not other["w"] and r["w"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match=r"multi-card slice of the port \(C5b\)"):
+    with pytest.raises(TypeError, match="DeviceMesh, placements"):
         ck.restore(tmp_path, 1, _meta(t), device={"w": Replicate(), "b": None})
+    # a (DeviceMesh, placements) pair gives a DTensor of this rank's chunk:
+    # here one rank of a 1 x 1 mesh (tests/test_torch_tp.py restores across
+    # meshes of several ranks)
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        m11 = mesh.make_device_mesh(1, 1)
+        r, _ = ck.restore(tmp_path, 1, _meta(t), device={"w": (m11, [Replicate(), Replicate()]),
+                                                          "b": None})
+        assert type(r["w"]).__name__ == "DTensor" and torch.equal(r["w"].to_local(), t["w"])
+        _equal({"b": t["b"]}, {"b": r["b"]})
+    finally:
+        dist.destroy_process_group()
 
 
 def test_save_async_copies_before_the_next_in_place_step(tmp_path):

@@ -117,6 +117,15 @@ with tempfile.TemporaryDirectory() as d:
     a = train.run(args + ["--ckpt-every", "2"])
     b = train.run(args + ["--resume"])
     assert b["start"] == 2 and b["loss"] == a["loss"], (a["loss"], b["loss"])
+# the tensor-parallel step: --mesh 2,2 on 4 gloo ranks (spawned: fresh
+# processes, whose imports are checked too)
+from repro_torch.launch import mesh
+outs = mesh.spawn_ranks(train.rank_main, 4, [
+    "--arch", "phi4-mini-3.8b", "--smoke", "--device", "cpu", "--seq", "8", "--batch", "4",
+    "--steps", "1", "--mesh", "2,2"], timeout_s=200)
+assert all(o["ranks"] == 4 and o["losses"] == outs[0]["losses"] for o in outs), outs
+assert not any(set(o["modules"]) & {"jax", "jaxlib", "repro", "msgpack", "ml_dtypes"}
+               for o in outs), [o["modules"] for o in outs]
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack", "zstandard", "ml_dtypes")
                for m in sys.modules)
 print("OK")
@@ -143,7 +152,8 @@ def test_chip_smoke_and_port_sources_name_no_jax():
             "models/moe.py", "models/encdec.py", "checkpoint/checkpoint.py",
             "checkpoint/_msgpack.py", "utils/roofline.py", "utils/trace.py",
             "launch/mesh.py", "parallel/__init__.py", "parallel/sharding.py",
-            "parallel/collectives.py"} <= names
+            "parallel/collectives.py", "parallel/tensor.py", "models/moe_a2a.py",
+            "runtime/elastic.py", "interop.py", "kernels/flash_attention/ops.py"} <= names
     for f in files:
         for line in f.read_text().splitlines():
             words = line.split()

@@ -40,10 +40,15 @@ def test_overrides_from_the_environment(monkeypatch):
     assert (res["cfg"].n_layers, res["cfg"].d_ff) == (1, 64)
 
 
-@pytest.mark.parametrize("extra,match", [(["--mesh", "1,2", "--coded-dp"], "C5b")])
-def test_what_waits_for_other_slices_is_refused(extra, match):
+@pytest.mark.parametrize("what,match", [("production_mesh", "C6")])
+def test_what_waits_for_other_slices_is_refused(what, match):
+    """The reference's production mesh serves its dry run, which waits for
+    slice C6; --mesh D,M with M > 1 runs (tests/test_torch_tp.py runs
+    --mesh 2,2 with and without --coded-dp on 4 ranks)."""
+    from repro_torch.launch import mesh
+
     with pytest.raises(NotImplementedError, match=match):
-        train.run(SMOKE + ["--steps", "1"] + extra)
+        mesh.make_production_mesh()
 
 
 def test_ckpt_then_resume_equals_the_uninterrupted_run(tmp_path, capsys):

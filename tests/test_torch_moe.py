@@ -123,10 +123,25 @@ def test_capacity_matches_reference():
         assert moe._capacity(S, m) == moe_jax._capacity(S, m)
 
 
-def test_all_to_all_formulation_waits_for_the_multi_rank_slice():
-    with pytest.raises(NotImplementedError, match="C5b"):
-        moe.set_moe_opts(a2a_mesh=object())
-    moe.set_moe_opts(constrain=True)  # a sharding hint: nothing to do on one card
+def test_all_to_all_formulation_waits_for_the_multi_rank_slice(monkeypatch):
+    """set_moe_opts(a2a_mesh=...) sends every MoE block to
+    moe_a2a.moe_block_a2a on that mesh (held to the reference across ranks
+    in tests/test_torch_moe_a2a.py); constrain is a sharding hint with
+    nothing to do on one card."""
+    from repro_torch.models import moe_a2a
+
+    calls = []
+    monkeypatch.setattr(moe_a2a, "moe_block_a2a",
+                        lambda p, x, cfg, mesh: calls.append(mesh) or (x, torch.zeros(())))
+    sentinel = object()
+    moe.set_moe_opts(a2a_mesh=sentinel)
+    try:
+        cfg_j, cfg, _, pt, x = _setup("qwen3-moe-235b-a22b", {})
+        out, _ = moe.moe_block(pt, torch.as_tensor(x), cfg)
+    finally:
+        moe.set_moe_opts()
+    assert calls == [sentinel] and torch.equal(out, torch.as_tensor(x))
+    moe.set_moe_opts(constrain=True)
     try:
         cfg_j, cfg, _, pt, x = _setup("qwen3-moe-235b-a22b", {})
         a, _ = moe.moe_block(pt, torch.as_tensor(x), cfg)
