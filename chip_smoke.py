@@ -39,7 +39,11 @@ across 4 ranks of the card: phi4-mini (2 layers) trained on a (data 2,
 model 2) mesh with K4 and its backward on each rank's heads and ZeRO-1
 AdamW, moonshot-v1-16b-a3b's forward (2 layers) through the
 expert-parallel MoE on (1, 4), and elastic shrink-and-restore from (2, 2)
-to (1, 2)), checks the results, and prints one line per phase.  The line before
+to (1, 2); the dry run's train cells: gemma2-27b on (16, 16) and
+qwen3-235b on (2, 16, 16) counted on shape-only tensors through
+``launch/dryrun``'s command line, and one production rank of each stepped
+on the card and held to those counts), checks the results, and prints one
+line per phase.  The line before
 the last is a JSON object with every kernel's launches on the main path,
 error and times; the last line is ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; so does a machine without a CUDA card,
@@ -51,6 +55,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -3972,6 +3977,140 @@ def elastic_phase(dev) -> int:
 
 
 
+# ---------------------------------------------------------------------------
+# The dry run's train cells (slice C6a)
+# ---------------------------------------------------------------------------
+
+# Two train_4k cells of launch/dryrun through its command line, on shape-only
+# tensors (no card: meta tensors), and one production rank of each stepped
+# for real: rank 0 of a fake world of 256 or 512 ranks on card 0, the cell's
+# config at full width and 1 group with the cell's n_micro, its parameters
+# placed by the production rules.  gemma2-27b on (16, 16): K4 at 2/1 heads a
+# rank, T 4096, softcap 50; qwen3-235b on (2, 16, 16): the pod axis, the
+# experts' ff FSDP over 'data', K4 with the q heads split and the kv heads
+# whole.  The real step's FLOPs and bytes (utils.trace.StepCosts) must equal
+# the shape-only steps' (meta, and fake CUDA tensors) exactly, K4's launches
+# the calls they counted, and its peak (torch.cuda.max_memory_allocated, the
+# placed state in it) lie within PEAK_RATIO of the shape-only peak.
+DRYRUN = dict(cells=[("gemma2-27b", "single"), ("qwen3-moe-235b-a22b", "multi")],
+              shape="train_4k", peak_ratio=(0.8, 1.25), timeout_s=240,
+              out=ROOT / "build" / "repro_torch" / "dryrun-chip")
+
+
+def _dryrun_rank(rank: int, world: int, store: str, cells, shape: str) -> list:
+    """[dryrun-rank]'s process: check_rank of each cell (``world`` is this
+    spawn's one process; the fake world is started inside)."""
+    from repro_torch.launch import dryrun
+
+    return [dict(arch=a, mesh=m, **dryrun.check_rank(a, m == "multi", shape, device="cuda"))
+            for a, m in cells]
+
+
+def dryrun_phases(dev) -> dict:
+    """[dryrun-cells] and [dryrun-rank] (see DRYRUN), run at once: the two
+    cells' command lines in subprocesses, the real ranks in a spawned
+    process.  Returns K4's real launches (forward, backward) summed over
+    the ranks."""
+    import os
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh
+
+    c = DRYRUN
+    torch.cuda.empty_cache()
+    c["out"].mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    logs = [c["out"] / f"{arch}__{m}.log" for arch, m in c["cells"]]
+    procs, ends = [], {}
+    for (arch, m), log in zip(c["cells"], logs):
+        with open(log, "w") as f:  # the card hidden: the cells need none
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                 c["shape"], "--mesh", m, "--force", "--out", str(c["out"])],
+                env=env, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT))
+    waiters = [threading.Thread(target=lambda i=i, p=p: (p.wait(), ends.setdefault(
+        i, time.perf_counter() - t0))) for i, p in enumerate(procs)]
+    for w in waiters:
+        w.start()
+    try:
+        ranks = mesh.spawn_ranks(_dryrun_rank, 1, c["cells"], c["shape"],
+                                 timeout_s=c["timeout_s"])[0]
+        rank_wall = time.perf_counter() - t0
+        for w in waiters:
+            w.join(timeout=max(1.0, c["timeout_s"] - rank_wall))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cells_wall = max(ends.values()) if len(ends) == len(procs) else float("nan")
+    for (arch, m), p, log in zip(c["cells"], procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"the dry run of {arch} on {m} failed:\n"
+                                 f"{log.read_text()[-4000:]}")
+        res = json.loads((c["out"] / f"{arch}__{c['shape']}__{m}.json").read_text())
+        cfg = get_config(arch)
+        roof, mem, bk = res["roofline"], res["memory"], res["by_kernel"]
+        phase("dryrun-cells", arch=arch, mesh=m, status=res["status"], n_micro=res["n_micro"],
+              devices=res["n_devices"], trace_s=res["trace_s"],
+              param_bytes_dev=f"{mem['param_bytes_per_device_est']:.6e}",
+              peak_bytes_dev=f"{mem['peak_bytes_per_device']:.6e}",
+              flops_dev=f"{roof['flops']:.6e}", hbm_bytes_dev=f"{roof['hbm_bytes']:.6e}",
+              wire_dev=f"{roof['wire_bytes']:.6e}", once_wire=f"{res['once_wire']:.6e}",
+              useful_flops_ratio=f"{roof['useful_flops_ratio']:.4f}",
+              bound_s=f"{max(roof['compute_s'], roof['memory_s'], roof['collective_s']):.4f}",
+              dominant=roof["dominant"], k4_calls=int(bk["flash_attention"]["calls"]),
+              k4_bwd_calls=int(bk["flash_attention_bwd"]["calls"]),
+              collectives=",".join(sorted(res["collectives"])), rules=repr(
+                  {k: v for k, v in res["rules"].items() if v}))
+        want = cfg.n_layers * res["n_micro"]
+        if res["status"] != "ok" or bk["flash_attention"]["calls"] != 2 * want or \
+                bk["flash_attention_bwd"]["calls"] != want:
+            raise AssertionError(f"{arch} on {m}: {res['status']}, K4 {bk}")
+        if arch.startswith("qwen3") and ("fsdp_gather" not in res["collectives"]
+                                          or res["rules"]["ff"] != "data"):
+            raise AssertionError("qwen3-235b's experts are not FSDP over 'data'")
+    fwd = bwd = 0
+    lo, hi = c["peak_ratio"]
+    for r in ranks:
+        real, meta, fake = r["real"], r["meta"], r["fake"]
+        ratio = real["peak_bytes"] / fake["peak_bytes"]
+        kinds = ";".join(f"{k.split('/')[1]}:{int(real[k])}" for k in sorted(real)
+                         if k.startswith("coll/") and k.endswith("/calls"))
+        phase("dryrun-rank", arch=r["arch"], mesh=r["mesh"], groups=1, n_micro=r["n_micro"],
+              k4_launches=real["launches"]["flash_attention"],
+              k4_bwd_launches=real["launches"]["flash_attention_bwd"],
+              k4_calls_fake=int(fake["kernel/flash_attention/calls"]),
+              k4_bwd_calls_fake=int(fake["kernel/flash_attention_bwd/calls"]),
+              flops_real=f"{real['flops']:.0f}", flops_fake=f"{fake['flops']:.0f}",
+              flops_meta=f"{meta['flops']:.0f}", bytes_real=real["bytes"],
+              bytes_fake=fake["bytes"], bytes_meta=meta["bytes"],
+              peak_real_gb=f"{real['peak_bytes'] / 1e9:.4f}",
+              peak_fake_gb=f"{fake['peak_bytes'] / 1e9:.4f}",
+              peak_meta_gb=f"{meta['peak_bytes'] / 1e9:.4f}",
+              live_real_gb=f"{real['live_peak_bytes'] / 1e9:.4f}", peak_ratio=f"{ratio:.4f}",
+              step_s=f"{real['step_s']:.3f}", collectives=kinds)
+        for shape_only in (meta, fake):
+            if (real["launches"]["flash_attention"]
+                    != shape_only["kernel/flash_attention/calls"]
+                    or real["launches"]["flash_attention_bwd"]
+                    != 2 * shape_only["kernel/flash_attention_bwd/calls"]):
+                raise AssertionError(f"{r['arch']}: K4's launches differ from the counted calls")
+            if real["flops"] != shape_only["flops"] or real["bytes"] != shape_only["bytes"]:
+                raise AssertionError(f"{r['arch']}: the real step's StepCosts differ from the "
+                                     "shape-only step's")
+        if not lo <= ratio <= hi:
+            raise AssertionError(f"{r['arch']}: real peak / shape-only peak {ratio:.3f}")
+        fwd += real["launches"]["flash_attention"]
+        bwd += real["launches"]["flash_attention_bwd"]
+    phase("dryrun-cells", cells=len(c["cells"]), wall_s=f"{cells_wall:.3f}",
+          beside="dryrun-rank")
+    phase("dryrun-rank", cells=len(ranks), wall_s=f"{rank_wall:.3f}")
+    return dict(fwd=fwd, bwd=bwd)
+
+
 def main() -> int:
     import torch
 
@@ -4160,7 +4299,14 @@ def main() -> int:
     fa["launches_by_path"]["moe-a2a"] = moe_a2a_phase(dev)
     fa["launches_by_path"]["elastic"] = elastic_phase(dev)
 
-    # 16. Every kernel of the paths.
+    # 16. The dry run's train cells on the production meshes (slice C6a): two
+    # cells on shape-only tensors, and one production rank of each stepped
+    # on the card (K4's counts taken just around that step).
+    dry = dryrun_phases(dev)
+    fa["launches_by_path"]["dryrun-rank"] = dry["fwd"]
+    fa_bwd["launches_by_path"]["dryrun-rank"] = dry["bwd"]
+
+    # 17. Every kernel of the paths.
     print(json.dumps({"kernels": [
         dict(name="coded_matmul", route="cuda",
              source="src/repro_torch/csrc/coded_matmul.cu",

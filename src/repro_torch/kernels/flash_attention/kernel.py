@@ -38,6 +38,13 @@ and strides run its tensor-core instance (3xTF32 wgmma, tiles by TMA;
 ``ref.attention_bwd_3xtf32`` is the plain model of its arithmetic), the
 rest (bfloat16, D > 128, unaligned rows) its CUDA-core instance.
 ``autograd.FlashAttentionFn`` joins the forward and the backward.
+
+Shape-only inputs (a ``torch._subclasses.fake_tensor.FakeTensor`` or a
+``meta`` tensor: the steps of ``launch/dryrun``) take a route of their own
+in both wrappers, tested before anything reaches the card: the same checks
+(on any device) and the same allocations, the call counted in ``trace`` as
+a launch is, and nothing built, launched or counted in ``.launches``.  A
+tensor with storage never takes it.
 """
 
 from __future__ import annotations
@@ -168,11 +175,20 @@ def attention_bwd_costs(B: int, Hq: int, Hkv: int, Tq: int, Tk: int, D: int, *,
     return flops, elem * (3 * nq + 2 * nk) + 4 * B * Hq * Tq + elem * (nq + 2 * nk)
 
 
-def _check_qkv(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+def shape_only(t: torch.Tensor) -> bool:
+    """Whether ``t`` has no storage to compute on: a fake or meta tensor."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor) or t.is_meta
+
+
+def _check_qkv(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               fake: bool = False) -> tuple:
     """The checks the forward and the backward share; returns (B, Hq, Hkv,
-    Tq, Tk, D)."""
+    Tq, Tk, D).  ``fake``: shape-only inputs (:func:`shape_only`), on any
+    device."""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda:
+        if not (t.is_cuda or fake):
             raise ValueError(f"{fn} takes CUDA tensors; {name} is on "
                              f"{t.device} (use the plain versions in ref.py there)")
         if t.device != q.device:
@@ -205,16 +221,25 @@ def _check_options(Tk: int, tk_valid, window, softcap) -> int:
     return tk_valid
 
 
-def _rows_vec(tensors, D: int) -> tuple:
-    """Each tensor with its last dimension contiguous, their (B, H, T)
-    element strides, and whether rows load as 4-element vectors (D, the
-    strides and the pointers allow it)."""
+def _rows(tensors) -> tuple:
+    """Each tensor with its last dimension contiguous, and their (B, H, T)
+    element strides."""
     tensors = [t if t.stride(-1) == 1 else t.contiguous() for t in tensors]
-    strides = [s_ for t in tensors for s_ in t.stride()[:3]]
+    return tensors, [s_ for t in tensors for s_ in t.stride()[:3]]
+
+
+def _vec(tensors, strides, D: int) -> bool:
+    """Whether rows load as 4-element vectors (D, the strides and the
+    pointers allow it)."""
     align = 4 * tensors[0].element_size()
-    vec = D % 4 == 0 and all(s_ % 4 == 0 for s_ in strides) and all(
+    return D % 4 == 0 and all(s_ % 4 == 0 for s_ in strides) and all(
         t.data_ptr() % align == 0 for t in tensors)
-    return tensors, strides, vec
+
+
+def _rows_vec(tensors, D: int) -> tuple:
+    """:func:`_rows` and :func:`_vec`: (tensors, strides, vec)."""
+    tensors, strides = _rows(tensors)
+    return tensors, strides, _vec(tensors, strides, D)
 
 
 def flash_attention_cuda(
@@ -236,9 +261,10 @@ def flash_attention_cuda(
     contiguous float32 tensor on q's device, receives each row's
     log-sum-exp (``ref.attention_lse_ref``; -inf for a row with no valid
     key)."""
-    B, Hq, Hkv, Tq, Tk, D = _check_qkv("flash_attention_cuda", q, k, v)
+    fake = shape_only(q)
+    B, Hq, Hkv, Tq, Tk, D = _check_qkv("flash_attention_cuda", q, k, v, fake)
     tk_valid = _check_options(Tk, tk_valid, window, softcap)
-    (q, k, v), strides, vec = _rows_vec((q, k, v), D)
+    (q, k, v), strides = _rows((q, k, v))
     if max(strides + [B, Hq, Tq, Tk, abs(q_offset) + Tq]) > _INT_MAX:
         raise ValueError("a size or stride exceeds the kernel's 32-bit arguments")
     if lse is not None and (lse.shape != (B, Hq, Tq) or lse.dtype != torch.float32
@@ -249,6 +275,10 @@ def flash_attention_cuda(
     out = torch.empty((B, Hq, Tq, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    if fake:
+        _count_fwd(B, Hq, Hkv, Tq, D, q_offset, tk_valid, causal, window, q, lse)
+        return out
+    vec = _vec((q, k, v), strides, D)
     plan = split_plan(B, Hq, Hkv, Tq, Tk, D, _sm_count(q.device),
                       vec and q.dtype == torch.float32)
     part = ticket = None
@@ -265,11 +295,15 @@ def flash_attention_cuda(
                  1.0 / (D ** 0.5),  # the TPU kernel's scale
                  float(softcap or 0.0))
     flash_attention_cuda.launches += 1
+    _count_fwd(B, Hq, Hkv, Tq, D, q_offset, tk_valid, causal, window, q, lse)
+    return out
+
+
+def _count_fwd(B, Hq, Hkv, Tq, D, q_offset, tk_valid, causal, window, q, lse) -> None:
     if trace.counting():
         trace.count_kernel("flash_attention", *attention_costs(
             B, Hq, Hkv, Tq, D, q_offset=int(q_offset), tk_valid=tk_valid, causal=bool(causal),
             window=window, elem=q.element_size(), lse=lse is not None))
-    return out
 
 
 flash_attention_cuda.launches = 0
@@ -327,7 +361,8 @@ def flash_attention_bwd_cuda(
     ``bwd_plan(D, float32 and 16-byte rows)`` names (the kernel picks it by
     the same rule).  Keys at or beyond ``tk_valid`` get zero gradients and
     are never read."""
-    B, Hq, Hkv, Tq, Tk, D = _check_qkv("flash_attention_bwd_cuda", q, k, v)
+    fake = shape_only(q)
+    B, Hq, Hkv, Tq, Tk, D = _check_qkv("flash_attention_bwd_cuda", q, k, v, fake)
     tk_valid = _check_options(Tk, tk_valid, window, softcap)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -336,7 +371,7 @@ def flash_attention_bwd_cuda(
     if (lse.shape != (B, Hq, Tq) or lse.dtype != torch.float32 or lse.device != q.device):
         raise ValueError(f"lse must be float32 (B, Hq, Tq) = {(B, Hq, Tq)} on {q.device}; got "
                          f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
-    (q, k, v, o, do), strides, vec = _rows_vec((q, k, v, o, do), D)
+    (q, k, v, o, do), strides = _rows((q, k, v, o, do))
     lse = lse.contiguous()
     if max(strides + [B, Hq, Tq, Tk, abs(q_offset) + Tq, B * Hq * Tq * D]) > _INT_MAX:
         raise ValueError("a size or stride exceeds the kernel's 32-bit arguments")
@@ -346,16 +381,17 @@ def flash_attention_bwd_cuda(
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, Hq, Tq), dtype=torch.float32, device=q.device)
-    lib = _bwd_lib()
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, Hq, Hkv, Tq, Tk, D, *strides, int(q_offset), tk_valid, int(bool(causal)),
-            int(window or 0), int(vec), _nvcc.DTYPE_CODE[q.dtype], 1.0 / (D ** 0.5),
-            float(softcap or 0.0))
-    _nvcc.launch(lib, "flash_attention_bwd_dq", q.device, *args)
-    flash_attention_bwd_cuda.launches += 1
-    _nvcc.launch(lib, "flash_attention_bwd_dkdv", q.device, *args)
-    flash_attention_bwd_cuda.launches += 1
+    if not fake:
+        lib = _bwd_lib()
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                B, Hq, Hkv, Tq, Tk, D, *strides, int(q_offset), tk_valid, int(bool(causal)),
+                int(window or 0), int(_vec((q, k, v, o, do), strides, D)),
+                _nvcc.DTYPE_CODE[q.dtype], 1.0 / (D ** 0.5), float(softcap or 0.0))
+        _nvcc.launch(lib, "flash_attention_bwd_dq", q.device, *args)
+        flash_attention_bwd_cuda.launches += 1
+        _nvcc.launch(lib, "flash_attention_bwd_dkdv", q.device, *args)
+        flash_attention_bwd_cuda.launches += 1
     if trace.counting():
         trace.count_kernel("flash_attention_bwd", *attention_bwd_costs(
             B, Hq, Hkv, Tq, Tk, D, q_offset=int(q_offset), tk_valid=tk_valid,

@@ -30,7 +30,7 @@ from typing import Optional
 import torch
 
 from .autograd import FlashAttentionFn
-from .kernel import flash_attention_cuda
+from .kernel import flash_attention_cuda, shape_only
 from .ref import attention_chunked, attention_ref
 
 # Above this key length the plain route switches to the chunked online-softmax
@@ -40,6 +40,15 @@ CHUNKED_THRESHOLD = 2048
 # Chunk length of the plain route's chunked path (the reference's scan
 # ``unroll`` option has no counterpart in a Python loop).
 CHUNK_OPTS = {"chunk": 1024}
+
+
+def set_chunk_opts(chunk: int = 1024, unroll: bool = False) -> None:
+    """The reference's knob of its chunked path: ``chunk`` keys a step of
+    the plain route's online softmax.  ``unroll`` unrolls the reference's
+    ``lax.scan`` over the chunks; the port's chunks are a Python loop,
+    already unrolled, so it is accepted and changes nothing."""
+    del unroll
+    CHUNK_OPTS["chunk"] = int(chunk)
 
 
 def flash_attention(
@@ -59,13 +68,16 @@ def flash_attention(
     reference's ``kv_len``.  ``use_kernel`` (the reference's ``use_pallas``)
     defaults to the device: the kernel for CUDA tensors, the plain version
     for CPU tensors.  Passing it asserts the route: ``True`` on CPU tensors
-    or ``False`` on CUDA tensors raises."""
+    or ``False`` on CUDA tensors raises.  A shape-only tensor (fake or
+    ``meta``: the steps of ``launch/dryrun``) takes the route
+    ``use_kernel`` names on any device: the kernel's route counts the call
+    and launches nothing."""
     if _is_dtensor(q):
         return _sharded_heads(q, k, v, causal=causal, window=window, softcap=softcap,
                               q_offset=q_offset, tk_valid=tk_valid, use_kernel=use_kernel)
     if use_kernel is None:
         use_kernel = q.is_cuda
-    if use_kernel != q.is_cuda:
+    if use_kernel != q.is_cuda and not shape_only(q):
         raise ValueError(
             f"use_kernel={use_kernel} but q is on {q.device}: the kernel runs "
             "on CUDA tensors and the plain version on CPU tensors")

@@ -16,6 +16,10 @@ that by whether a path has a collective:
   over a ``(data, model)`` ``DeviceMesh`` of ranks (:func:`make_device_mesh`,
   :mod:`repro_torch.parallel.tensor`).  :func:`init_ranks` starts their
   process group; :func:`backend_for` picks its backend.
+- The reference's production meshes, (data 16, model 16) and (pod 2, data
+  16, model 16) (:func:`make_production_mesh`), serve its dry run: the
+  port's (``launch/dryrun``) lays them over a world of PyTorch's ``fake``
+  backend (:func:`start_fake_world`), one process standing for rank 0.
 
 Run the ranks on the CPU (gloo) or on cards::
 
@@ -39,8 +43,12 @@ import torch.distributed as dist
 
 from .. import _device
 
-__all__ = ["HostMesh", "backend_for", "init_ranks", "make_device_mesh", "make_host_mesh",
-           "make_production_mesh", "rank_device", "spawn_ranks"]
+__all__ = ["HostMesh", "PRODUCTION", "backend_for", "init_ranks", "make_device_mesh",
+           "make_host_mesh", "make_production_mesh", "rank_device", "spawn_ranks",
+           "start_fake_world"]
+
+# The reference's production meshes: one pod of (data 16, model 16), and two.
+PRODUCTION = {False: (1, 16, 16), True: (2, 16, 16)}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -95,36 +103,67 @@ def make_host_mesh(data: int = 1, model: int = 1, devices: Optional[Sequence] = 
     return HostMesh(grid.reshape(int(data), int(model)), ("data", "model"))
 
 
-def make_device_mesh(data: int, model: int = 1, ranks: Optional[Sequence[int]] = None):
+def make_device_mesh(data: int, model: int = 1, ranks: Optional[Sequence[int]] = None,
+                     pod: int = 1):
     """A ``(data, model)`` ``torch.distributed`` ``DeviceMesh`` over ranks
     of the started process group (:func:`init_ranks`), with the reference's
     axis names: ``ranks`` (default ``0 .. data * model - 1``; the first
     ``data * model`` of them are taken) placed row-major, rank
-    ``ranks[d * model + m]`` at (d, m).  Every rank of the world must call
-    it, those left out of the mesh too: they take part in creating its
-    groups (their coordinate is then None).  The mesh's device type is
-    the ranks' (``cuda`` once :func:`init_ranks` has set this rank's card,
-    else ``cpu``)."""
+    ``ranks[d * model + m]`` at (d, m).  ``pod > 1``: a ``(pod, data,
+    model)`` mesh of ``pod * data * model`` ranks, with the pod x data
+    group that splits the batch flattened beside it
+    (``parallel.tensor.dp_group``).  Every rank of the world must call it,
+    those left out of the mesh too: they take part in creating its groups
+    (their coordinate is then None).  The mesh's device type is the ranks'
+    (``cuda`` once :func:`init_ranks` has set this rank's card, else
+    ``cpu``)."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    n = int(data) * int(model)
+    shape = (int(pod), int(data), int(model)) if pod > 1 else (int(data), int(model))
+    names = ("pod", "data", "model") if pod > 1 else ("data", "model")
+    n = int(np.prod(shape))
+    what = "x".join(str(x) for x in shape)
     ranks = list(range(n)) if ranks is None else [int(r) for r in ranks][:n]
     if len(ranks) != n:
-        raise ValueError(f"a {data}x{model} mesh needs {n} ranks, got {len(ranks)}")
+        raise ValueError(f"a {what} mesh needs {n} ranks, got {len(ranks)}")
     if n > dist.get_world_size():
-        raise ValueError(f"a {data}x{model} mesh needs {n} ranks; the world has "
+        raise ValueError(f"a {what} mesh needs {n} ranks; the world has "
                          f"{dist.get_world_size()}")
     kind = "cuda" if torch.cuda.is_available() and torch.cuda.is_initialized() else "cpu"
-    return DeviceMesh(kind, torch.tensor(ranks, dtype=torch.int64).reshape(int(data), int(model)),
-                      mesh_dim_names=("data", "model"))
+    mesh = DeviceMesh(kind, torch.tensor(ranks, dtype=torch.int64).reshape(shape),
+                      mesh_dim_names=names)
+    if pod > 1:
+        mesh["pod", "data"]._flatten("dp")
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's (data=16, model=16) pod, or (pod=2, 16, 16): only the
-    dry run lowers onto it, and the dry run waits for slice C6 of the port."""
-    raise NotImplementedError(
-        "make_production_mesh serves the dry run (launch/dryrun), which waits for slice C6 of "
-        "the port; make_host_mesh builds a mesh of local devices")
+    """The reference's production mesh over the started world's first ranks:
+    ``("data", "model")`` (16, 16), or ``("pod", "data", "model")`` (2, 16,
+    16) with ``multi_pod``.  Raises when the world is smaller (256 or 512
+    ranks; :func:`start_fake_world` starts one of shape-only ranks)."""
+    pod, data, model = PRODUCTION[bool(multi_pod)]
+    if not dist.is_initialized():
+        raise RuntimeError(f"the production mesh lays {pod * data * model} ranks out: start "
+                           "them first (init_ranks, or start_fake_world for a shape-only "
+                           "dry run)")
+    return make_device_mesh(data, model, pod=pod)
+
+
+def start_fake_world(world_size: int = 512) -> None:
+    """Start the process group as rank 0 of ``world_size`` ranks of
+    PyTorch's ``fake`` backend (``torch.testing``'s ``FakeStore``): every
+    collective returns at once and moves nothing, so one process can run
+    one rank's step of a production mesh (``launch/dryrun``).  A process
+    group already started is kept if it is such a world of that size."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if dist.get_backend() == "fake" and dist.get_world_size() == world_size:
+            return
+        raise RuntimeError(f"a process group is already started ({dist.get_backend()}, "
+                           f"{dist.get_world_size()} ranks)")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=int(world_size))
 
 
 def backend_for(device, world_size: int) -> str:

@@ -186,7 +186,7 @@ def _attention_tp(params, x, cfg, window, causal, positions, use_rope, use_kerne
         shape = (B, heads, *t.shape[2:])
         return DTensor.from_local(t, mesh, [Shard(1) if split_heads else Replicate()],
                                   run_check=False, shape=torch.Size(shape),
-                                  stride=torch.empty(shape, device="meta").stride())
+                                  stride=tp.dense_strides(shape))
 
     o = flash_attention(wrap(q, group is not None, cfg.n_heads),
                         wrap(k, kv_split, cfg.n_kv_heads), wrap(v, kv_split, cfg.n_kv_heads),

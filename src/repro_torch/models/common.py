@@ -168,10 +168,21 @@ def _freqs(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
 def rope_tables(positions: torch.Tensor, head_dim: int,
                 theta: float = 10000.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos and sin of the rotation angles, (B, 1, T, head_dim/2), for
-    positions (B, T) or (T,): computed once and shared by q and k."""
+    positions (B, T) or (T,): computed once and shared by q and k.  The
+    frequencies are a table made once a device (for fake tensors, a
+    shape-only step's, at each call: a cached fake would outlive its mode)
+    and never counted in ``utils.trace``."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    from ..utils import trace
+
     if positions.dim() == 1:
         positions = positions[None, :]
-    ang = positions[:, None, :, None].float() * _freqs(head_dim, theta, positions.device)
+    with trace.uncounted():
+        freqs = (rope_freqs(head_dim, theta, positions.device)
+                 if isinstance(positions, FakeTensor) else _freqs(head_dim, theta,
+                                                                  positions.device))
+    ang = positions[:, None, :, None].float() * freqs
     return torch.cos(ang), torch.sin(ang)
 
 

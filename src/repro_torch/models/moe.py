@@ -27,6 +27,7 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..parallel import tensor as tp
 from .common import ACT, ParamBuilder
@@ -73,6 +74,14 @@ def route(params: Dict[str, Any], xf: torch.Tensor, cfg: ModelConfig):
     return probs, top_w, top_e
 
 
+def bin_counts(ids: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """How many of ``ids`` (int64, each in ``[0, n_bins)``) fall in each bin:
+    ``torch.bincount(ids, minlength=n_bins)`` with a static output shape, as
+    a shape-only (fake tensor) step needs."""
+    counts = torch.zeros((n_bins,), dtype=torch.int64, device=ids.device)
+    return counts.scatter_add_(0, ids.reshape(-1), torch.ones_like(ids.reshape(-1)))
+
+
 def experts(xf: torch.Tensor, rel_e: torch.Tensor, flat_w: torch.Tensor, n_bins: int, C: int,
             k: int, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor):
     """Sort-based dispatch of the S*k assignments (token i's j-th choice at
@@ -88,7 +97,7 @@ def experts(xf: torch.Tensor, rel_e: torch.Tensor, flat_w: torch.Tensor, n_bins:
     _, order = torch.sort(rel_e, stable=True)
     sorted_tok = flat_tok[order]
     sorted_w = flat_w[order]
-    counts = torch.bincount(rel_e, minlength=n_bins + 1)[:n_bins]  # (n_bins,)
+    counts = bin_counts(rel_e, n_bins + 1)[:n_bins]                # (n_bins,)
     offsets = torch.cumsum(counts, 0) - counts
     # slot (e, c) -> index into the sorted arrays, masked past each count
     cs = torch.arange(C, device=xf.device)
@@ -125,11 +134,16 @@ def moe_block(
     """x: (B, T, D) -> (out, aux_loss). Aux = load-balance loss (Switch).
     With ``set_moe_opts(a2a_mesh=...)``: ``moe_a2a.moe_block_a2a`` on that
     mesh (x this rank's rows).  DTensor weights otherwise are gathered
-    whole (the model axis's ranks compute the block alike)."""
+    whole (the model axis's ranks compute the block alike), and the
+    load-balance statistics are the global batch's, as the reference's
+    are under GSPMD: means over the data-parallel ranks
+    (``parallel.tensor.dp_group``)."""
     if MOE_OPTS["a2a_mesh"] is not None:
         from .moe_a2a import moe_block_a2a
 
         return moe_block_a2a(params, x, cfg, MOE_OPTS["a2a_mesh"])
+    router = params["router"]
+    dp = tp.dp_group(router.device_mesh) if tp.is_dtensor(router) else None
     params = tp.whole_tree(params)
     m = cfg.moe
     B, T, D = x.shape
@@ -148,6 +162,9 @@ def moe_block(
     # Switch-style load-balance auxiliary loss.
     me = probs.mean(dim=0)                                         # (E,)
     ce = counts / (S * k)
+    if dp is not None:
+        stats = tp.sum_both(torch.stack([me, ce.to(me.dtype)]), dp) / dist.get_world_size(dp)
+        me, ce = stats[0], stats[1]
     aux = E * torch.sum(me * ce)
     return out.reshape(B, T, D), aux.float()
 

@@ -38,27 +38,20 @@ import torch
 from ..parallel import tensor as tp
 from ..parallel.sharding import mesh_shape
 from .config import ModelConfig
-from .moe import MOE_OPTS, experts, route, shared_experts
+from .moe import MOE_OPTS, bin_counts, experts, route, shared_experts
 
 
-def _local_experts(w, axis_dim: int, e_start: int, e_loc: int, data_group):
+def _local_experts(w, e_start: int, e_loc: int):
     """This model rank's experts of a weight: a DTensor's local shard
-    (its ff slices gathered over 'data' where split there), or rows
-    ``[e_start, e_start + e_loc)`` of a whole tensor."""
-    from torch.distributed.tensor import Shard
-
+    (its ff slices gathered over 'data' where split there, FSDP:
+    ``parallel.tensor.gather_data``), or rows ``[e_start, e_start +
+    e_loc)`` of a whole tensor."""
     if not tp.is_dtensor(w):
         return w[e_start:e_start + e_loc]
-    names = list(w.device_mesh.mesh_dim_names)
     if tp.model_shard_dim(w) != 0:
         raise ValueError(f"moe_block_a2a wants the experts split over 'model' (dim 0); got "
                          f"{w.placements}")
-    out = w.to_local()
-    data_pl = w.placements[names.index("data")] if "data" in names else None
-    if isinstance(data_pl, Shard):
-        out = tp.all_gather(out, axis_dim, data_group, full_len=w.shape[axis_dim],
-                            kind="moe_ff_gather")
-    return out
+    return tp.gather_data(w.to_local(), w)
 
 
 def moe_block_a2a(
@@ -93,9 +86,9 @@ def moe_block_a2a(
     # 'model'
     xin = tp.copy_to(xf, model_group)
     w_in = tp.copy_to(top_w.reshape(-1), model_group)
-    wg = _local_experts(params["w_gate"], 2, e_start, e_loc, data_group)
-    wu = _local_experts(params["w_up"], 2, e_start, e_loc, data_group)
-    wd = _local_experts(params["w_down"], 1, e_start, e_loc, data_group)
+    wg = _local_experts(params["w_gate"], e_start, e_loc)
+    wu = _local_experts(params["w_up"], e_start, e_loc)
+    wd = _local_experts(params["w_down"], e_start, e_loc)
 
     flat_e = top_e.reshape(-1)
     local = (flat_e >= e_start) & (flat_e < e_start + e_loc)
@@ -112,7 +105,7 @@ def moe_block_a2a(
 
     # load-balance stats are global: averaged over the data shards
     mean_probs = probs.mean(dim=0)
-    frac = torch.bincount(flat_e, minlength=m.n_experts) / (S * k)
+    frac = bin_counts(flat_e, m.n_experts) / (S * k)
     if data_group is not None:
         stats = tp.sum_both(torch.stack([mean_probs, frac.to(mean_probs.dtype)]),
                             data_group) / data_n

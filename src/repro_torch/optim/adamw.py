@@ -17,6 +17,10 @@ each rank its slice of the moments and of the parameter, then gathers the
 parameter's slices over 'data'.  The gradients come whole over 'data' (the
 step's all-reduce), so every slice's update is the one-process update of
 those elements.  The gradient norm sums every element once over the mesh.
+On a ``(pod, data, model)`` mesh the moments are split over 'data' and
+alike over 'pod', as the reference's ``opt_state_shardings`` lays them out.
+A parameter split over 'data' itself (FSDP) has moments laid out as it is:
+each rank updates its shard, and nothing is gathered.
 """
 
 from __future__ import annotations
@@ -90,10 +94,10 @@ def _dzeros(p, mesh, placements):
     """A zero fp32 DTensor of ``p``'s global shape laid out by ``placements``."""
     from torch.distributed.tensor import DTensor
 
-    shape = tp.local_chunk(torch.empty(p.shape, device="meta"), mesh, placements).shape
+    shape = tp.local_shape(p.shape, mesh, placements)
     return DTensor.from_local(torch.zeros(shape, dtype=torch.float32, device=p.device), mesh,
                               list(placements), run_check=False, shape=p.shape,
-                              stride=torch.empty(p.shape, device="meta").stride())
+                              stride=tp.dense_strides(p.shape))
 
 
 def leaf_sq_norms(tree: PyTree) -> List[torch.Tensor]:
@@ -157,11 +161,14 @@ def apply(
     return params, AdamWState(step, state.m, state.v), metrics
 
 
-def _data_slice(m):
-    """(dim, start, length, group) of the slice of its parameter that a
-    moment DTensor holds over 'data', or None when it is whole there."""
+def _data_slice(m, p):
+    """(dim, start, length, group) of the slice of its parameter ``p`` that
+    a moment DTensor holds over 'data', or None when it is whole there or
+    ``p`` is itself split there (FSDP: the moment's shard is ``p``'s)."""
     from torch.distributed.tensor import Shard
 
+    if tp.data_shard_dim(p) is not None:
+        return None
     names = list(m.device_mesh.mesh_dim_names or ())
     if "data" not in names:
         return None
@@ -169,7 +176,7 @@ def _data_slice(m):
     pl = m.placements[i]
     if not isinstance(pl, Shard):
         return None
-    sizes = tp.chunk_sizes(m.shape[pl.dim], m.device_mesh.mesh.shape[i])
+    sizes = tp.chunk_sizes(m.shape[pl.dim], m.device_mesh.size(i))
     c = m.device_mesh.get_coordinate()[i]
     return pl.dim, sum(sizes[:c]), sizes[c], m.device_mesh.get_group("data")
 
@@ -179,7 +186,7 @@ def _update_slice(cfg, p, g, m, v, scale, b1c, b2c, lr_f) -> None:
     moments and of the parameter updated as the one-process update does,
     then the parameter's slices gathered over 'data'."""
     pl, ml, vl = p.to_local(), m.to_local(), v.to_local()
-    cut = _data_slice(m)
+    cut = _data_slice(m, p)
     if cut is not None:
         dim, start, length, group = cut
         g = g.narrow(dim, start, length)

@@ -37,7 +37,7 @@ import numpy as np
 from ..launch.mesh import HostMesh, _local_devices
 
 __all__ = ["batch_spec", "cache_shardings", "data_mesh", "estimate_bytes", "make_rules",
-           "mesh_shape", "opt_state_shardings", "param_shardings", "placements_for",
+           "mesh_shape", "named", "opt_state_shardings", "param_shardings", "placements_for",
            "spec_for_axes"]
 
 PyTree = Any
@@ -53,7 +53,7 @@ def mesh_shape(mesh) -> Dict[str, int]:
     and a ``devices`` array."""
     names = getattr(mesh, "mesh_dim_names", None)
     if names is not None:  # torch.distributed DeviceMesh
-        return dict(zip(names, tuple(mesh.mesh.shape)))
+        return dict(zip(names, (mesh.size(i) for i in range(len(names)))))
     return dict(zip(mesh.axis_names, mesh.devices.shape))
 
 
@@ -144,8 +144,13 @@ def placements_for(mesh, spec: Sequence) -> list:
     return out
 
 
-def _sharding(mesh, spec: tuple):
-    return (mesh, placements_for(mesh, spec)) if _is_device_mesh(mesh) else spec
+def named(mesh, spec: tuple):
+    """The port's ``NamedSharding(mesh, spec)``: ``(mesh, placements)`` on
+    a ``DeviceMesh``, the spec itself on a stand-in mesh."""
+    return (mesh, placements_for(mesh, spec)) if _is_device_mesh(mesh) else tuple(spec)
+
+
+_sharding = named
 
 
 def param_shardings(mesh, axes_tree: PyTree, rules: AxisRule) -> PyTree:

@@ -20,12 +20,19 @@ The model computes on each rank's local shards, Megatron's way:
   backward: the ranks of the model axis compute the same values there.
 
 A parameter sharded over ``data`` (the rules do that only for the experts'
-ff of qwen3-235b at full width, FSDP) is refused by the training step.
+ff of qwen3-235b at full width) is FSDP: :func:`whole` gathers it over the
+data axis before use (again in remat's recompute, which reruns the
+forward), and its gradient is summed over every data-parallel rank
+(:func:`dp_group`: pod x data) and sliced back to this rank's shard in the
+backward, so the step's own gradient all-reduce leaves it out
+(:func:`data_shard_dim`).
 
 Every collective here is gloo's or NCCL's ``all_reduce`` or ``all_gather``,
 the two gloo takes for CUDA tensors of ranks that share a card, and is
-counted by kind and bytes in :data:`COUNTS`: a step that gathered the
-embedding table or the logits whole would show there.
+counted by kind in :data:`COUNTS`: calls, bytes this rank sends, and wire
+bytes by the reference's ring model (``utils.roofline.wire_bytes``): a
+step that gathered the embedding table or the logits whole would show
+there.
 """
 
 from __future__ import annotations
@@ -40,8 +47,9 @@ from ..models.common import tree_leaves, tree_map
 
 PyTree = Any
 
-# kind -> [calls, bytes] of the collectives run since the last reset_counts()
-COUNTS: Dict[str, List[int]] = collections.defaultdict(lambda: [0, 0])
+# kind -> [calls, bytes, wire bytes] of the collectives run since the last
+# reset_counts()
+COUNTS: Dict[str, List[float]] = collections.defaultdict(lambda: [0, 0, 0.0])
 
 
 def reset_counts() -> None:
@@ -53,15 +61,25 @@ def counts() -> Dict[str, Tuple[int, int]]:
     return {k: (v[0], v[1]) for k, v in sorted(COUNTS.items())}
 
 
-def _count(kind: str, t: torch.Tensor) -> None:
+def wire() -> Dict[str, float]:
+    """kind -> wire bytes a rank since :func:`reset_counts`, by the ring
+    model: an all-reduce of S bytes over P ranks 2 S (P-1)/P, an
+    all-gather of a chunk of S bytes S (P-1)."""
+    return {k: v[2] for k, v in sorted(COUNTS.items())}
+
+
+def _count(kind: str, t: torch.Tensor, group, gather: bool = False) -> None:
     c = COUNTS[kind]
+    nbytes = t.numel() * t.element_size()
+    p = dist.get_world_size(group)
     c[0] += 1
-    c[1] += t.numel() * t.element_size()
+    c[1] += nbytes
+    c[2] += nbytes * (p - 1) if gather else 2.0 * nbytes * (p - 1) / p
 
 
 def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM, kind: str = "all_reduce"):
     """``dist.all_reduce`` in place, counted; returns ``t``."""
-    _count(kind, t)
+    _count(kind, t, group)
     dist.all_reduce(t, op=op, group=group)
     return t
 
@@ -90,7 +108,7 @@ def all_gather(t: torch.Tensor, dim: int, group, full_len: Optional[int] = None,
         pad[dim] = sizes[0] - t.shape[dim]
         t = torch.cat([t, t.new_zeros(pad)], dim=dim)
     parts = [torch.empty_like(t) for _ in range(n)]
-    _count(kind, t)
+    _count(kind, t, group, gather=True)
     dist.all_gather(parts, t, group=group)
     return torch.cat([p.narrow(dim, 0, s) for p, s in zip(parts, sizes)], dim=dim)
 
@@ -104,6 +122,27 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def dense_strides(shape) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape`` (no tensor made)."""
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(int(n), 1)
+    return tuple(reversed(out))
+
+
+def local_shape(shape, mesh, placements: Sequence) -> Tuple[int, ...]:
+    """The shape of this rank's chunk of a tensor of ``shape`` under
+    ``placements`` (:func:`local_chunk`'s, no tensor made)."""
+    from torch.distributed.tensor import Shard
+
+    out, coord = list(shape), mesh.get_coordinate()
+    for m, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            out[pl.dim] = chunk_sizes(out[pl.dim], mesh.size(m))[coord[m]]
+    return tuple(out)
+
+
 def _chunk_of(full: torch.Tensor, mesh, placements: Sequence,
               coord: Sequence[int]) -> torch.Tensor:
     from torch.distributed.tensor import Shard
@@ -111,7 +150,7 @@ def _chunk_of(full: torch.Tensor, mesh, placements: Sequence,
     out = full
     for m, pl in enumerate(placements):
         if isinstance(pl, Shard):
-            sizes = chunk_sizes(full.shape[pl.dim], mesh.mesh.shape[m])
+            sizes = chunk_sizes(full.shape[pl.dim], mesh.size(m))
             out = out.narrow(pl.dim, sum(sizes[:coord[m]]), sizes[coord[m]])
     return out
 
@@ -131,7 +170,7 @@ def distribute(full: torch.Tensor, mesh, placements: Sequence):
 
     return DTensor.from_local(local_chunk(full.detach(), mesh, placements), mesh,
                               list(placements), run_check=False, shape=full.shape,
-                              stride=torch.empty(full.shape, device="meta").stride())
+                              stride=dense_strides(full.shape))
 
 
 def like(value: torch.Tensor, ref):
@@ -240,16 +279,28 @@ def model_coord(w) -> int:
     return w.device_mesh.get_coordinate()[_model_dim(w)]
 
 
-def _refuse_data_shard(w) -> None:
+def dp_group(mesh):
+    """The group of the ranks that split the batch on ``mesh``: pod x data
+    (one flattened group, :func:`launch.mesh.make_device_mesh` creates it
+    with the mesh), 'data' on a mesh without 'pod'; None when that is one
+    rank."""
+    names = mesh.mesh_dim_names or ()
+    if "pod" in names:
+        return mesh["pod", "data"]._flatten("dp").get_group()
+    if "data" in names and mesh.size(names.index("data")) > 1:
+        return mesh.get_group("data")
+    return None
+
+
+def data_shard_dim(w) -> Optional[int]:
+    """The dimension a DTensor is split along over 'data' (FSDP), or None."""
     from torch.distributed.tensor import Shard
 
-    names = w.device_mesh.mesh_dim_names or ()
-    for name, pl in zip(names, w.placements):
-        if name != "model" and isinstance(pl, Shard):
-            raise NotImplementedError(
-                f"a parameter sharded over {name!r} ({w.placements}): FSDP of the weights is "
-                "not part of the port's step (the rules ask it only of qwen3-235b's experts "
-                "at full width)")
+    if not is_dtensor(w):
+        return None
+    names = list(w.device_mesh.mesh_dim_names or ())
+    pl = w.placements[names.index("data")] if "data" in names else None
+    return pl.dim if isinstance(pl, Shard) else None
 
 
 # ------------------------------------------------- differentiable operators
@@ -283,6 +334,41 @@ class _SumBoth(_ReduceFrom):
         return _CopyTo.backward(ctx, g)
 
 
+def _own(chunk: torch.Tensor) -> torch.Tensor:
+    """A chunk of a whole gradient in storage of its own: a view would keep
+    the whole (a gathered weight's full size) alive as long as the chunk,
+    to the end of the backward."""
+    return chunk.clone(memory_format=torch.contiguous_format)
+
+
+class _DataGather(torch.autograd.Function):
+    """FSDP's gather over 'data': the gradient of the whole is summed over
+    the data-parallel ranks and this rank's slice kept."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, sum_group, full_len):
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        sizes = chunk_sizes(full_len, n)
+        ctx.dim, ctx.start, ctx.size, ctx.sum_group = dim, sum(sizes[:r]), sizes[r], sum_group
+        return all_gather(x, dim, group, full_len=full_len, kind="fsdp_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g.contiguous().clone(), ctx.sum_group, kind="fsdp_grad_all_reduce")
+        return _own(g.narrow(ctx.dim, ctx.start, ctx.size)), None, None, None, None
+
+
+def gather_data(x: torch.Tensor, w) -> torch.Tensor:
+    """``x`` (a local tensor laid out as the DTensor ``w``) gathered whole
+    along ``w``'s 'data' dimension, differentiably (:class:`_DataGather`);
+    ``x`` itself when ``w`` is not split over 'data'."""
+    dim = data_shard_dim(w)
+    if dim is None:
+        return x
+    mesh = w.device_mesh
+    return _DataGather.apply(x, dim, mesh.get_group("data"), dp_group(mesh), w.shape[dim])
+
+
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group, full_len):
@@ -293,7 +379,7 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(ctx.dim, ctx.start, ctx.size).contiguous(), None, None, None
+        return _own(g.narrow(ctx.dim, ctx.start, ctx.size)), None, None, None
 
 
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
@@ -316,13 +402,13 @@ def sum_both(x: torch.Tensor, group) -> torch.Tensor:
 
 def whole(w) -> torch.Tensor:
     """A parameter's whole value as a local tensor, differentiably: a
-    DTensor sharded over the model axis is gathered (its gradient is this
-    rank's chunk of the whole one, which the model axis's ranks compute
-    alike); a plain tensor is itself."""
+    DTensor sharded over 'data' (FSDP) is gathered there first
+    (:func:`gather_data`), one sharded over the model axis then gathered
+    there (its gradient is this rank's chunk of the whole one, which the
+    model axis's ranks compute alike); a plain tensor is itself."""
     if not is_dtensor(w):
         return w
-    _refuse_data_shard(w)
-    x = w.to_local()
+    x = gather_data(w.to_local(), w)
     dim = model_shard_dim(w)
     if dim is None:
         return x
@@ -341,9 +427,7 @@ def split(*pairs) -> Tuple[List[torch.Tensor], Optional[Any]]:
     each weight :func:`whole` and None (the ranks compute the region alike)."""
     ws = [w for w, _ in pairs]
     if all(is_dtensor(w) and model_shard_dim(w) == d for w, d in pairs):
-        for w in ws:
-            _refuse_data_shard(w)
-        return [w.to_local() for w in ws], model_group(ws[0])
+        return [gather_data(w.to_local(), w) for w in ws], model_group(ws[0])
     return [whole(w) for w in ws], None
 
 
@@ -387,7 +471,7 @@ def vocab_logits(x: torch.Tensor, head, tied: bool):
     shape = (*out.shape[:-1], head.shape[0 if tied else 1])
     return DTensor.from_local(out, mesh, [Shard(out.dim() - 1)], run_check=False,
                               shape=torch.Size(shape),
-                              stride=torch.empty(shape, device="meta").stride())
+                              stride=dense_strides(shape))
 
 
 class _VocabParallelCE(torch.autograd.Function):

@@ -18,15 +18,17 @@ over the group (the reference's weighted ``psum`` over the data axis);
 without one the R workers run in turn and the sum is taken in worker
 order.
 
-Given a ``(data, model)`` ``DeviceMesh`` of ranks instead
-(:func:`repro_torch.launch.mesh.make_device_mesh`), ``make_train_step``
-trains tensor parallel: the parameters are DTensors laid out by the
-reference's rules (``parallel.sharding``, ``parallel.tensor.place_tree``),
-each data rank takes its rows of the batch where ``batch_spec`` splits it
-(the whole batch where it does not divide), the model axis's ranks compute
-their heads, ff columns and vocabulary range, the gradients (DTensors laid
-out as the parameters) are summed over 'data', and AdamW updates
-ZeRO-1-sharded moments.  ``make_coded_train_step`` takes such a mesh too:
+Given a ``(data, model)`` or ``(pod, data, model)`` ``DeviceMesh`` of
+ranks instead (:func:`repro_torch.launch.mesh.make_device_mesh`),
+``make_train_step`` trains tensor parallel: the parameters are DTensors
+laid out by the reference's rules (``parallel.sharding``,
+``parallel.tensor.place_tree``), each rank takes its rows of the batch
+where ``batch_spec`` splits it over pod x data or data (the whole batch
+where it does not divide), the model axis's ranks compute their heads, ff
+columns and vocabulary range, the gradients (DTensors laid out as the
+parameters) are averaged over pod x data, and AdamW updates
+ZeRO-1-sharded moments.  A weight the rules split over 'data' (FSDP) is
+gathered before use and its gradient summed in the backward.  ``make_coded_train_step`` takes such a mesh too:
 as in the reference's coded step the parameters are whole on every rank,
 data rank w is worker w and the weighted sum runs over 'data' only (the
 model axis's ranks compute their worker alike).
@@ -85,16 +87,21 @@ def _rank_slice(micro: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor
 
 
 def _data_rows(micro: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
-    """This data rank's rows of every microbatch of a (n_micro, mb, ...)
-    batch where ``batch_spec`` splits mb over 'data'; the whole microbatch
-    where it does not divide (as the reference's spec leaves it)."""
-    d, D = mesh.get_coordinate()[0], mesh_shape(mesh)["data"]
+    """This rank's rows of every microbatch of a (n_micro, mb, ...) batch
+    as ``batch_spec`` splits mb: over ('pod', 'data') (pod-major) or
+    'data' alone; the whole microbatch where it does not divide (as the
+    reference's spec leaves it)."""
+    names, coord, sizes = list(mesh.mesh_dim_names), mesh.get_coordinate(), mesh_shape(mesh)
 
     def one(x):
         mb = x.shape[1]
-        if batch_spec(mesh, mb)[0] is None:
+        axes = batch_spec(mesh, mb)[0]
+        if axes is None:
             return x
-        return x[:, d * (mb // D):(d + 1) * (mb // D)]
+        i, n = 0, 1
+        for a in (axes,) if isinstance(axes, str) else axes:
+            i, n = i * sizes[a] + coord[names.index(a)], n * sizes[a]
+        return x[:, i * (mb // n):(i + 1) * (mb // n)]
 
     return {k: one(v) for k, v in micro.items()}
 
@@ -127,13 +134,15 @@ def accumulate_grads(model: Model, params: PyTree,
                      micro: Dict[str, torch.Tensor]) -> Tuple[PyTree, torch.Tensor]:
     """The mean gradient and loss over the leading microbatch axis of
     ``micro`` (n_micro, mb, ...): each microbatch's gradient summed in fp32
-    (in order, from zero), then divided, as the reference's scan does."""
+    (in order, from zero), then divided, as the reference's scan does.  The
+    sums are contiguous (a bf16 leaf's gradient may come strided; the
+    step's all-reduce works in place)."""
     n = next(iter(micro.values())).shape[0]
     gsum, lsum = None, torch.zeros((), dtype=torch.float32, device=_device_of(params))
     for i in range(n):
         loss, grads = value_and_grad(model.loss_fn, params, {k: v[i] for k, v in micro.items()})
         if gsum is None:
-            gsum = tree_map(lambda g: g.float(), grads)
+            gsum = tree_map(lambda g: g.float().contiguous(), grads)
         else:
             tree_map(lambda a, g: a.add_(g.float()), gsum, grads)
         lsum = lsum + loss
@@ -168,18 +177,20 @@ def make_train_step(
     ``train_step.grads(params, batch)`` returns that gradient and loss
     without a step.
 
-    ``mesh``: a ``(data, model)`` ``DeviceMesh`` (the module's docstring);
-    ``params`` DTensors on it, the optimizer state from
-    ``adamw.init(params, opt_state_shardings)``.  Every rank is given the
-    same global batch; the gradients returned are DTensors laid out as the
-    parameters, whole over 'data'.
+    ``mesh``: a ``(data, model)`` or ``(pod, data, model)`` ``DeviceMesh``
+    (the module's docstring); ``params`` DTensors on it, the optimizer
+    state from ``adamw.init(params, opt_state_shardings)``.  Every rank is
+    given the same global batch; the gradients returned are DTensors laid
+    out as the parameters, whole over 'data' but where a parameter is
+    split there (FSDP).  The mean runs over pod x data, one flattened
+    group (``parallel.tensor.dp_group``); an FSDP parameter's gradient is
+    summed over it in the backward (``parallel.tensor.whole``) and only
+    divided here.
     """
     dev = _device.resolve(device)
     if group is not None and mesh is not None:
         raise ValueError("give a data group or a mesh, not both")
-    data_group = group
-    if mesh is not None and mesh_shape(mesh)["data"] > 1:
-        data_group = mesh.get_group("data")
+    data_group = group if mesh is None else tp.dp_group(mesh)
 
     def step_grads(params, batch):
         b = _as_tensors(batch, _on(params, dev))
@@ -191,7 +202,9 @@ def make_train_step(
         grads, loss = accumulate_grads(model, params, mb)
         if data_group is not None:
             D = dist.get_world_size(data_group)
-            collectives.all_reduce_tree((grads, loss), data_group, kind="data_all_reduce")
+            summed = [g for g, p in zip(tree_leaves(grads), tree_leaves(params))
+                      if tp.data_shard_dim(p) is None]
+            collectives.all_reduce_tree((summed, loss), data_group, kind="data_all_reduce")
             grads, loss = tree_map(lambda g: g.div_(D), grads), loss / D
         return tree_map(tp.like, grads, params), loss
 

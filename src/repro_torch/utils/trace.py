@@ -4,7 +4,8 @@ of ``repro.utils.hlo``, which reads them from compiled HLO text).
 * :class:`StepCosts` counts what a step does while it is active: for each
   aten op, its FLOPs by ``torch.utils.flop_counter``'s formulas (matrix
   products, convolutions, attention) and its bytes, the op's tensor inputs
-  plus its outputs, views and bare allocations excluded.  Eager PyTorch
+  plus its outputs, views, bare allocations and ``prim`` queries (a fake
+  tensor's ``.device``) excluded.  Eager PyTorch
   fuses nothing, so every op round-trips HBM: this is the analogue of
   XLA's ``bytes accessed``.  The port's own kernels are ctypes launches
   that the dispatcher never sees; each wrapper adds its operations and
@@ -92,7 +93,7 @@ class StepCosts(TorchDispatchMode):
         packet = func.overloadpacket
         if packet in flop_registry:
             self.aten_flops += flop_registry[packet](*args, **kwargs, out_val=out)
-        if not (func.is_view or func in _NO_TRAFFIC):
+        if not (func.is_view or func in _NO_TRAFFIC or func.namespace == "prim"):
             self.aten_ops += 1
             self.aten_bytes += _nbytes((args, kwargs)) + _nbytes(out)
         return out

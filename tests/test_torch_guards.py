@@ -17,7 +17,7 @@ from repro_torch import _device, interop, quickstart
 from repro_torch.configs import get_config
 from repro_torch.core import baselines, engine, simulator
 from repro_torch.figures import run as figures_run
-from repro_torch.launch import mesh
+from repro_torch.launch import dryrun, mesh
 from repro_torch.launch import serve as serve_launch
 from repro_torch.launch import train as train_launch
 from repro_torch.models import build_model
@@ -126,6 +126,14 @@ outs = mesh.spawn_ranks(train.rank_main, 4, [
 assert all(o["ranks"] == 4 and o["losses"] == outs[0]["losses"] for o in outs), outs
 assert not any(set(o["modules"]) & {"jax", "jaxlib", "repro", "msgpack", "ml_dtypes"}
                for o in outs), [o["modules"] for o in outs]
+# the dry run of a smoke cell on the (2, 16, 16) mesh: shape-only tensors
+# and a fake world of 512 ranks (last: it starts a process group here)
+import dataclasses
+from repro_torch.launch import dryrun, specs
+cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b", smoke=True), param_dtype="bfloat16",
+                          compute_dtype="bfloat16")
+res = dryrun.run_cell("qwen3-moe-235b-a22b", "train_4k", True, verbose=False, cfg=cfg)
+assert res["status"] == "ok" and res["by_kernel"]["flash_attention"]["calls"] > 0, res
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack", "zstandard", "ml_dtypes")
                for m in sys.modules)
 print("OK")
@@ -153,7 +161,8 @@ def test_chip_smoke_and_port_sources_name_no_jax():
             "checkpoint/_msgpack.py", "utils/roofline.py", "utils/trace.py",
             "launch/mesh.py", "parallel/__init__.py", "parallel/sharding.py",
             "parallel/collectives.py", "parallel/tensor.py", "models/moe_a2a.py",
-            "runtime/elastic.py", "interop.py", "kernels/flash_attention/ops.py"} <= names
+            "runtime/elastic.py", "interop.py", "kernels/flash_attention/ops.py",
+            "launch/specs.py", "launch/dryrun.py"} <= names
     for f in files:
         for line in f.read_text().splitlines():
             words = line.split()
@@ -230,6 +239,11 @@ def test_default_device_is_cuda_and_entry_points_refuse_without_a_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         interop.tables_from_numpy(z, z, z, z[..., None], z[..., None],
                                   z[..., None], z[..., None])
+    # The dry run's cells need no card: they step shape-only tensors, on
+    # any host (tests/test_torch_dryrun.py runs them here).  Its real-rank
+    # check steps a production rank on the card, and refuses without one.
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.check_rank("gemma2-27b", False)
     assert engine.Engine(device="cpu").run(cfg, "best", 2, 20).T.shape == (2,)
 
 

@@ -1,7 +1,7 @@
 """The port's training launcher (``python -m repro_torch.launch.train``) on
-the CPU: smoke steps, the coded-DP path, the config overrides, a run
-saved mid-way and resumed, and the options that wait for other slices
-refused.  ``--mesh D,1`` across ranks is in ``test_torch_ranks.py``."""
+the CPU: smoke steps, the coded-DP path, the config overrides, and a run
+saved mid-way and resumed.  ``--mesh D,1`` across ranks is in
+``test_torch_ranks.py``, ``--mesh D,M`` in ``test_torch_tp.py``."""
 
 import _torch_env  # noqa: F401  (one torch thread; before torch is used)
 import numpy as np
@@ -38,17 +38,6 @@ def test_overrides_from_the_environment(monkeypatch):
     monkeypatch.setenv("REPRO_TRAIN_OVERRIDES", "n_layers=1,d_ff=64")
     res = train.run(SMOKE + ["--steps", "1"])
     assert (res["cfg"].n_layers, res["cfg"].d_ff) == (1, 64)
-
-
-@pytest.mark.parametrize("what,match", [("production_mesh", "C6")])
-def test_what_waits_for_other_slices_is_refused(what, match):
-    """The reference's production mesh serves its dry run, which waits for
-    slice C6; --mesh D,M with M > 1 runs (tests/test_torch_tp.py runs
-    --mesh 2,2 with and without --coded-dp on 4 ranks)."""
-    from repro_torch.launch import mesh
-
-    with pytest.raises(NotImplementedError, match=match):
-        mesh.make_production_mesh()
 
 
 def test_ckpt_then_resume_equals_the_uninterrupted_run(tmp_path, capsys):

@@ -67,7 +67,7 @@ def test_host_mesh_grid_and_refusals():
     assert m.axis_devices("data") == [torch.device("cpu")] * 2
     with pytest.raises(ValueError, match="needs 8 devices"):
         mesh.make_host_mesh(data=2, model=4, devices=CPU8[:3])
-    with pytest.raises(NotImplementedError, match="C6"):
+    with pytest.raises(RuntimeError, match="start_fake_world"):   # no process group here
         mesh.make_production_mesh()
 
 
